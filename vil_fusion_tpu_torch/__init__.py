@@ -1,0 +1,30 @@
+"""vil_fusion_tpu_torch — PyTorch + CUDA port of vil_fusion_tpu.
+
+This slice runs the LiDAR-only pipeline (`mode="lidar"`): feature
+extraction, scan-to-map odometry and global fusion (ScanContext, ICP loop
+verification, pose graph). The two dense kNN kernels are hand-written CUDA
+(`csrc/knn.cu`, bound in `ops/cuda/knn_cuda.py`); everything else is plain
+PyTorch. Module layout and names mirror `vil_fusion_tpu`, which stays the
+reference. This package imports torch and numpy, never jax.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Precision policy (mirror of vil_fusion_tpu/__init__.py, which forces
+# float32 matmuls on the TPU): TF32 keeps ~3 decimal digits, which corrupts
+# the expanded-form kNN distances |q|^2 + |d|^2 - 2 q.d (the TPU's bf16
+# default lost ~0.5 m^2 there) and the Gauss-Newton / pose-graph solves.
+# Both flags are process-wide, set once at import.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from vil_fusion_tpu_torch.runtime.config import RigConfig, load_rig  # noqa: E402,F401
+
+
+def make_pipeline(rig_path: str, mode: str = "lidar", **kw):
+    """Load a rig YAML and build the pipeline (only mode="lidar" is ported)."""
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+
+    return VILFusionPipeline(load_rig(rig_path), mode=mode, **kw)
