@@ -1,6 +1,7 @@
-"""The port on a CUDA card: K1/K2 kernels against their plain versions at the
-main path's shapes, and the LiDAR-only slice on the card against the same
-slice on the CPU.
+"""The port on a CUDA card: the K1/K2/K3 kernels (both distance forms of K1
+and K2) against their plain versions at the main paths' shapes, the
+dispatcher's routing on the card, and the LiDAR-only slice and the vil
+front end on the card against the same code on the CPU.
 
 Imports torch and numpy only (a CUDA machine need not have jax). Every
 test needs a card and skips without one. Where jax is not installed, skip
@@ -20,7 +21,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1/K2 kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kNN kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -37,27 +38,32 @@ def _margin_rows(d, k):
     return (gap_ok | ~torch.isfinite(d[:, 1:])).all(1) & torch.isfinite(d[:, 0])
 
 
+@pytest.mark.parametrize("form", ["expanded", "diff"])
 @pytest.mark.parametrize("nq,nd,k,grouped", [
     (2048, 16384, 5, True),  # edge association
     (8192, 32768, 5, True),  # surf association
     (2048, 51200, 1, False),  # ICP
     (8192, 32768, 5, False),  # exact association (approx_knn=False)
+    (192, 115200, 3, False),  # depth association
     (300, 1000, 8, False),
     (77, 130, 3, True),
 ])
-def test_cuda_kernel_matches_plain(cuda_device, nq, nd, k, grouped):
-    """Kernel and plain version round identically: distances equal within
-    1e-6 of the largest distance, indices identical on rows whose k+1
-    nearest are 1e-6 relative apart, index 0 where no neighbour; one launch
-    counted per call."""
+def test_cuda_kernel_matches_plain(cuda_device, nq, nd, k, grouped, form):
+    """Kernel and plain version round identically in both distance forms:
+    distances equal within 1e-6 of the largest distance, indices identical
+    on rows whose k+1 nearest are 1e-6 relative apart, index 0 where no
+    neighbour; one launch counted per call (and as a difference-form launch
+    where it is one)."""
     q, db, v = (torch.from_numpy(x).to(cuda_device) for x in _data(nq, nd, nq + nd))
     kern = kc.knn_grouped if grouped else kc.knn_exact
     plain = kc.knn_grouped_plain if grouped else kc.knn_exact_plain
-    before = kern.launches
-    d, i = kern(q, db, v, k=k)
+    before, before_diff = kern.launches, kern.launches_diff
+    d, i = kern(q, db, v, k=k, form=form)
     assert kern.launches == before + 1
-    d_p, i_p = plain(q, db, v, k=k)
-    d_m, _ = plain(q, db, v, k=k + 1)
+    assert kern.launches_diff == before_diff + (form == "diff")
+    assert kern.last_call == (nq, nd, k)
+    d_p, i_p = plain(q, db, v, k=k, form=form)
+    d_m, _ = plain(q, db, v, k=k + 1, form=form)
     torch.cuda.synchronize()
     fin = torch.isfinite(d_p)
     assert torch.equal(fin, torch.isfinite(d))
@@ -68,9 +74,85 @@ def test_cuda_kernel_matches_plain(cuda_device, nq, nd, k, grouped):
     assert (i[~torch.isfinite(d)] == 0).all()
 
 
+def _clustered(nq, nd, seed, n_centers=40):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-40, 40, (n_centers, 3))
+    db = (centers[rng.integers(0, n_centers, nd)] + rng.normal(0, 2.0, (nd, 3))).astype(np.float32)
+    q = (centers[rng.integers(0, n_centers, nq)] + rng.normal(0, 2.0, (nq, 3))).astype(np.float32)
+    return q, db, rng.random(nd) > 0.1
+
+
+@pytest.mark.parametrize("nq,nd,k,db_tile,presort", [
+    (2048, 65536, 5, 128, True),  # edge association, 4x map, presorted as in scan_to_map
+    (8192, 131072, 5, 128, True),  # surf association, 4x map
+    (3000, 20000, 5, 128, False),  # ragged sizes, the wrapper sorts
+    (300, 3000, 3, 256, False),  # wider database tile
+    (130, 2000, 8, 128, False),
+])
+def test_cuda_sparse_kernel_matches_plain(cuda_device, nq, nd, k, db_tile, presort):
+    """K3 against its plain version with the same tiles: distances equal
+    bit for bit on every row (same skip rule, same rounding), indices equal
+    on unambiguous rows, index 0 where missing; inside the radius equal to
+    the plain exact search in the difference form; one launch counted."""
+    from vil_fusion_tpu_torch.ops import knn as knn_plain
+
+    q, db, v = (torch.from_numpy(x).to(cuda_device) for x in _clustered(nq, nd, nq + nd))
+    if presort:
+        qp, dp = knn_plain.morton_sort(q), knn_plain.morton_sort(db, v)
+        q, db, v = q[qp].contiguous(), db[dp].contiguous(), v[dp].contiguous()
+    kw = dict(radius=3.0, db_tile=db_tile, q_sorted=presort, db_sorted=presort)
+    before = kc.knn_sparse.launches
+    d, i = kc.knn_sparse(q, db, v, k=k, **kw)
+    assert kc.knn_sparse.launches == before + 1 and kc.knn_sparse.last_call == (nq, nd, k)
+    d_p, i_p = kc.knn_sparse_plain(q, db, v, k=k, q_tile=128, **kw)
+    d_m, _ = kc.knn_sparse_plain(q, db, v, k=k + 1, q_tile=128, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p)
+    rows = _margin_rows(d_m, k)
+    assert torch.equal(i[rows], i_p[rows])
+    assert (i[~torch.isfinite(d)] == 0).all() and v[i[torch.isfinite(d)].long()].all()
+    d_x, i_x = kc.knn_exact_plain(q, db, v, k=k, form="diff")
+    d_x1, _ = kc.knn_exact_plain(q, db, v, k=k + 1, form="diff")
+    gate = d_x[:, -1] < 9.0
+    assert gate.any() and torch.equal(gate, d[:, -1] < 9.0)
+    assert torch.equal(d[gate], d_x[gate])
+    clear = gate & _margin_rows(d_x1, k)
+    assert torch.equal(i[clear], i_x[clear])
+
+
+def test_cuda_dispatcher_routes(cuda_device):
+    """On the card `knn(radius=...)` launches K3 whatever `approx` says, and
+    never K1 on sorted inputs (q_sorted / db_sorted without radius go to
+    K2); the difference form reaches K1/K2 through `form`; K3 refuses tiles
+    its kernel does not take; an all-invalid database answers inf / 0."""
+    from vil_fusion_tpu_torch.ops import knn as knn_plain
+
+    q, db, v = (torch.from_numpy(x).to(cuda_device) for x in _clustered(500, 6000, 3))
+    dp = knn_plain.morton_sort(db, v)
+    sdb, sv = db[dp].contiguous(), v[dp].contiguous()
+    n1, n2, n3 = kc.knn_grouped.launches, kc.knn_exact.launches, kc.knn_sparse.launches
+    d_s, _ = kc.knn(q, sdb, sv, k=5, radius=3.0, approx=True, db_sorted=True)
+    assert (kc.knn_grouped.launches, kc.knn_exact.launches, kc.knn_sparse.launches) \
+        == (n1, n2, n3 + 1)
+    d_x, _ = kc.knn(q, sdb, sv, k=5, approx=True, db_sorted=True)
+    assert (kc.knn_grouped.launches, kc.knn_exact.launches) == (n1, n2 + 1)
+    gate = d_x[:, -1] < 9.0
+    assert gate.sum() > 20
+    np.testing.assert_allclose(d_s[gate].cpu().numpy(), d_x[gate].cpu().numpy(), rtol=1e-4,
+                               atol=1e-3)  # difference form against expanded form
+    kc.knn(q, db, v, k=5, approx=True, form="diff")
+    assert kc.knn_grouped.launches == n1 + 1 and kc.knn_grouped.launches_diff >= 1
+    with pytest.raises(ValueError, match="q_tile"):
+        kc.knn_sparse(q, db, v, k=5, q_tile=64)
+    with pytest.raises(ValueError, match="form"):
+        kc.knn(q, db, v, k=5, form="packed")
+    d, i = kc.knn(q, db, torch.zeros_like(v), k=3, radius=2.0)
+    assert torch.isinf(d).all() and (i == 0).all()
+
+
 def test_cuda_kernel_edge_cases(cuda_device):
-    """All-invalid database and fewer valid points than k, on the card; the
-    dispatcher refuses the unported sparse kernel (radius) on CUDA."""
+    """All-invalid database and fewer valid points than k, on the card; k
+    beyond the kernels' register lists is refused."""
     q = torch.zeros((70, 3), device=cuda_device)
     for kern in (kc.knn_grouped, kc.knn_exact):
         d, i = kern(q, torch.ones((500, 3), device=cuda_device),
@@ -81,8 +163,6 @@ def test_cuda_kernel_edge_cases(cuda_device):
         d, i = kern(q[:8].contiguous(), torch.ones((600, 3), device=cuda_device), valid, k=4)
         assert (torch.isfinite(d).sum(1) == 2).all()
         assert set(i[0, :2].tolist()) == {5, 17}
-    with pytest.raises(NotImplementedError):
-        kc.knn(q, q, torch.ones(70, dtype=torch.bool, device=cuda_device), radius=3.0)
     with pytest.raises(ValueError):
         kc.knn_exact(q, q, torch.ones(70, dtype=torch.bool, device=cuda_device), k=9)
 
@@ -127,3 +207,58 @@ def test_cuda_slice_matches_cpu(cuda_device):
     assert np.isfinite(gpu).all() and np.abs(gpu - cpu).max() < 0.02
     assert pipes[0].fusion.n_kf == pipes[1].fusion.n_kf
     assert all(x.is_cuda for x in list(pipes[1].lidar_state) + list(pipes[1].fusion.graph))
+
+
+def test_cuda_front_end_matches_cpu(cuda_device):
+    """vil_front_end on the card against the same function on the CPU over 3
+    small frames (16-ring scans, 160 x 120 images; RANSAC off, because with
+    40 tracks its hypotheses' inlier counts nearly tie and the winner then
+    depends on the device's rounding): feature ids equal, pixels within
+    0.05 px, lidar pose within 5e-3 m, depth flags equal on 95% of the
+    features; K1 and K2 (k=3) launched."""
+    from vil_fusion_tpu_torch.models import lidar_odometry as lo
+    from vil_fusion_tpu_torch.models import tracker as trk
+    from vil_fusion_tpu_torch.runtime import pipeline as pl
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+
+    H, W, F = 120, 160, 100.0
+    r_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    rig = RigConfig(
+        name="small", camera=dict(model_type="PINHOLE",
+                                  projection_parameters=dict(fx=F, fy=F, cx=W / 2, cy=H / 2),
+                                  distortion_parameters=dict(k1=0.0, k2=0.0, p1=0.0, p2=0.0)),
+        image_height=H, image_width=W, q_ic=sim.R_to_q(r_bc), t_ic=np.zeros(3),
+        q_cl=sim.R_to_q(r_bc.T), t_cl=np.zeros(3), max_cnt=40, min_dist=12, n_scan=16,
+        lidar_fov_up=15.0, lidar_fov_down=-15.0, lidar_min_range=1.0, lidar_max_range=80.0)
+    odom = dict(edge_map_cap=2048, surf_map_cap=4096, edge_cap=256, surf_cap=1024)
+    scene = sim.RaycastScene()
+    traj = sim.Trajectory(sim.TrajectoryConfig(speed=4.0))
+    results = []
+    k1, k2 = kc.knn_grouped.launches, kc.knn_exact.launches
+    for dev in ("cpu", cuda_device):
+        fe = pl.front_end_config(rig, f_cap=64, odom_overrides=odom, device=dev)
+        fe = fe._replace(tcfg=fe.tcfg._replace(ransac=False))
+        ts = trk.init_tracker(H, W, fe.tcfg, device=dev)
+        ls = lo.init_state(fe.lcfg, device=dev)
+        outs = []
+        for k in range(3):
+            t = 1.0 + 0.1 * k
+            R, p = traj.rotation(t), traj.position(t) + np.array([0, 0, 1.5])
+            img = sim.render_camera_image(scene, R @ r_bc, p, F, F, W / 2, H / 2, H, W)
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            pts, val = sim.simulate_lidar_scan(scene, R, p, n_scan=16, width=900,
+                                               fov_up_deg=15.0, fov_down_deg=-15.0, seed=k)
+            ts, ls, out = pl.vil_front_end(ts, ls, torch.from_numpy(img).to(dev),
+                                           torch.from_numpy(pts).to(dev),
+                                           torch.from_numpy(val).to(dev), t, fe, frame_index=k)
+            outs.append({n: v.cpu().numpy() for n, v in out.items()})
+        results.append(outs)
+    assert kc.knn_grouped.launches - k1 >= 2 and kc.knn_exact.launches - k2 == 3
+    assert kc.knn_exact.last_call == (64, 16 * 900, 3)
+    for a, b in zip(*results):
+        np.testing.assert_array_equal(b["ids"], a["ids"])
+        v = a["valid"]
+        np.testing.assert_allclose(b["uv"][v], a["uv"][v], atol=0.05)
+        np.testing.assert_allclose(b["lidar_p"], a["lidar_p"], atol=5e-3)
+        assert (np.sign(b["depth"][v]) == np.sign(a["depth"][v])).mean() >= 0.95

@@ -135,18 +135,23 @@ def test_host_contract_edge_cases(fn):
 
 
 def test_dispatcher_routes_cpu_to_plain():
-    """On CPU tensors: approx=True is the plain grouped search, otherwise the
-    plain exact one (radius ignored: exact is exact within any radius); no
-    kernel launch is counted."""
+    """On CPU tensors: approx=True is the plain grouped search, radius= the
+    plain sparse search (whatever approx says), otherwise the plain exact
+    one; all bit-equal to the plain function called directly, and no kernel
+    launch is counted."""
     q, db, v = (torch.from_numpy(x) for x in _data(100, 1500, 5))
     n1, n2 = kc.knn_grouped.launches, kc.knn_exact.launches
     for approx, ref in ((True, tknn.knn_grouped), (False, tknn.knn)):
         d, i = kc.knn(q, db, v, k=5, approx=approx)
         d_r, i_r = ref(q, db, v, k=5)
         assert torch.equal(d, d_r) and torch.equal(i, i_r)
-    d, _ = kc.knn(q, db, v, k=2, radius=3.0)
-    assert torch.equal(d, tknn.knn(q, db, v, k=2)[0])
-    assert (kc.knn_grouped.launches, kc.knn_exact.launches) == (n1, n2)
+    n3 = kc.knn_sparse.launches
+    d_r, i_r = tknn.knn_sparse(q, db, v, k=2, radius=3.0)
+    for approx in (False, True):
+        d, i = kc.knn(q, db, v, k=2, radius=3.0, approx=approx)
+        assert torch.equal(d, d_r) and torch.equal(i, i_r)
+    assert (kc.knn_grouped.launches, kc.knn_exact.launches,
+            kc.knn_sparse.launches) == (n1, n2, n3)
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
@@ -154,4 +159,6 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     tensor handed to it raises instead of falling back."""
     q = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="CUDA"):
-        kc._launch(q, q, torch.ones(4, dtype=torch.bool), 3, grouped=True)
+        kc._launch(q, q, torch.ones(4, dtype=torch.bool), 3, grouped=True, form="expanded")
+    with pytest.raises(ValueError, match="CUDA"):
+        kc._check(q, q, torch.ones(4, dtype=torch.bool), 3)

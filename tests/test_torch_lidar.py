@@ -149,7 +149,7 @@ def test_odometry_step_from_carried_state(jax_sequence, approx):
     maps' validity is identical and map points agree within 1e-3 m;
     grouped: the valid counts agree within 1%."""
     scans, states, poses = jax_sequence
-    ts = state_io.to_torch(tlo.MapState, state_io.to_numpy(states[3]))
+    ts = state_io.to_torch(tlo.MapState, state_io.to_numpy(states[3]), "cpu")
     pts, val, _ = scans[3]
     ts2, (q, p, q_rel, p_rel) = tlo.odometry_step(
         ts, torch.from_numpy(pts), torch.from_numpy(val),
@@ -177,7 +177,7 @@ def test_odometry_sequence_tracks_jax(jax_sequence):
     0.5 m). The host frame-count mirror and the device counter agree."""
     scans, _, poses = jax_sequence
     cfg = tlo.OdomConfig(lidar=TCFG, **ODOM_KW)
-    state = tlo.init_state(cfg)
+    state = tlo.init_state(cfg, device="cpu")
     errs, diffs = [], []
     for i, (pts, val, (R_gt, p_gt)) in enumerate(scans):
         state, (q, p, _, _) = tlo.odometry_step(state, torch.from_numpy(pts),
@@ -192,15 +192,21 @@ def test_odometry_sequence_tracks_jax(jax_sequence):
 
 
 def test_unported_options_raise():
-    """hash kNN, sparse kNN and deskew are not ported: they raise and name
-    the ROADMAP."""
-    state = tlo.init_state(tlo.OdomConfig(lidar=TCFG, **ODOM_KW))
+    """hash kNN, sparse kNN and deskew are ported and no longer raise: each
+    runs a first frame (empty scan) to a finite pose and counts the frame.
+    What still raises is an unknown distance form of the dense kNN."""
     pts = torch.zeros((32 * 900, 3))
     val = torch.zeros(32 * 900, dtype=torch.bool)
     for opt in ("use_hash_knn", "sparse_knn", "deskew"):
         cfg = tlo.OdomConfig(lidar=TCFG, **ODOM_KW, **{opt: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlo.odometry_step(state, pts, val, cfg, frame_count=0)
+        state, (q, p, _, _) = tlo.odometry_step(tlo.init_state(cfg, device="cpu"), pts, val,
+                                                cfg, frame_count=0)
+        assert torch.isfinite(q).all() and torch.isfinite(p).all()
+        assert int(state.frame_count) == 1
+    cfg = tlo.OdomConfig(lidar=TCFG, **ODOM_KW, knn_form="packed")
+    state = tlo.init_state(cfg, device="cpu")
+    with pytest.raises(ValueError, match="form"):
+        tlo.odometry_step(state, pts, val, cfg, frame_count=1)
 
 
 def test_lie_glue_matches():

@@ -64,7 +64,7 @@ def test_scancontext_insert_and_detect_match(revisit_scans):
     test_loops.py's acceptance (dist < SC_DIST_THRES, |idx - 2| <= 2, yaw
     error < 0.3 rad)."""
     scans, query = revisit_scans
-    jdb, tdb = jsc.init_db(256), tsc.init_db(256)
+    jdb, tdb = jsc.init_db(256), tsc.init_db(256, device="cpu")
     for pts, val in scans:
         jdb = jsc.add_keyframe(jdb, jsc.make_descriptor(jnp.asarray(pts), jnp.asarray(val)))
         tdb = tsc.add_keyframe(tdb, tsc.make_descriptor(_t(pts), _t(val)))
@@ -88,14 +88,14 @@ def test_scancontext_full_db_and_recency():
     exactly as in JAX."""
     rng = np.random.default_rng(0)
     descs = rng.uniform(0, 3, (5, tsc.N_RING, tsc.N_SECTOR)).astype(np.float32)
-    jdb, tdb = jsc.init_db(4), tsc.init_db(4)
+    jdb, tdb = jsc.init_db(4), tsc.init_db(4, device="cpu")
     for d in descs:
         jdb = jsc.add_keyframe(jdb, jnp.asarray(d))
         tdb = tsc.add_keyframe(tdb, _t(d))
     assert int(tdb.count) == int(jdb.count) == 4
     np.testing.assert_array_equal(tdb.desc.numpy(), np.asarray(jdb.desc))
     ij, dj, _ = jsc.detect_loop(jsc.init_db(64), jnp.asarray(descs[0]))
-    it, dt, _ = tsc.detect_loop(tsc.init_db(64), _t(descs[0]))
+    it, dt, _ = tsc.detect_loop(tsc.init_db(64, device="cpu"), _t(descs[0]))
     assert np.isinf(float(dt)) and np.isinf(float(dj)) and int(it) == int(ij)
 
 
@@ -175,7 +175,7 @@ def _square_graph_measurements():
 @pytest.fixture(scope="module")
 def square_graphs():
     nodes, loop, n, p_gt_n = _square_graph_measurements()
-    jg, tg = jpg.init_graph(256, 32), tpg.init_graph(256, 32)
+    jg, tg = jpg.init_graph(256, 32), tpg.init_graph(256, 32, device="cpu")
     for qa, pa, qr, pr in nodes:
         jg = jpg.add_node(jg, *(jnp.asarray(x) for x in (qa, pa, qr, pr)))
         tg = tpg.add_node(tg, *(_t(x) for x in (qa, pa, qr, pr)))
@@ -219,7 +219,7 @@ def fusion_pair():
     scene = sim.RaycastScene()
     kw = dict(node_capacity=64, loop_capacity=8, cloud_capacity=1024, submap_half_span=3)
     jf = jgf.GlobalFusion(jgf.GlobalFusionConfig(**kw))
-    tf = tgf.GlobalFusion(tgf.GlobalFusionConfig(**kw))
+    tf = tgf.GlobalFusion(tgf.GlobalFusionConfig(**kw), device="cpu")
     for i in range(6):
         R, p = _yaw_R(0.04 * i), np.array([10.0 + 2.5 * i, 0.5, 1.5])
         q = sim.R_to_q(R).astype(np.float32)
@@ -258,7 +258,7 @@ def test_submap_icp_from_carried_state(fusion_pair):
     within 1e-3 m / 1e-3 rad, fitness within rtol 1e-2 (25 ICP iterations of
     f32 Kabsch on 7k points)."""
     jf, _ = fusion_pair
-    tf = tgf.GlobalFusion(tgf.GlobalFusionConfig(**jf.cfg._asdict()))
+    tf = tgf.GlobalFusion(tgf.GlobalFusionConfig(**jf.cfg._asdict()), device="cpu")
     state_io.global_fusion_load(tf, state_io.global_fusion_to_numpy(jf))
     assert tf.n_kf == 6
     i, j, yaw0 = 5, 1, 0.2

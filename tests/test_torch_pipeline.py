@@ -55,7 +55,8 @@ def runs(tmp_path_factory):
     jp = JPipeline(JRig(**RIG_KW), mode="lidar", odom_overrides=ODOM,
                    gf_cfg=jgf.GlobalFusionConfig(**GF), scan_quant=0.0025)
     tp = tpipe.VILFusionPipeline(TRig(**RIG_KW), mode="lidar", odom_overrides=ODOM,
-                                 gf_cfg=tgf.GlobalFusionConfig(**GF), scan_quant=0.0025)
+                                 gf_cfg=tgf.GlobalFusionConfig(**GF), scan_quant=0.0025,
+                                 device="cpu")
     for t, pts, val, _ in frames:
         jp.push_scan(t, pts.copy(), val.copy())
         tp.push_scan(t, pts.copy(), val.copy())
@@ -150,9 +151,9 @@ def test_pipeline_modes_and_imu(tmp_path):
     rig = TRig(**RIG_KW)
     for mode in ("vil", "vio", "mask"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.VILFusionPipeline(rig, mode=mode)
+            tpipe.VILFusionPipeline(rig, mode=mode, device="cpu")
     pipe = tpipe.VILFusionPipeline(rig, mode="lidar", odom_overrides=ODOM,
-                                   gf_cfg=tgf.GlobalFusionConfig(**GF))
+                                   gf_cfg=tgf.GlobalFusionConfig(**GF), device="cpu")
     assert pipe.push_imu(0.0, np.zeros(3), np.zeros(3)) is None
     assert pipe.push_imu_batch(np.arange(3) * 0.005, np.zeros((3, 3)), np.zeros((3, 3))) is None
     assert len(pipe.imu_buf) == 4 and pipe.outputs.ts == []

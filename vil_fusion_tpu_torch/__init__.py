@@ -1,11 +1,15 @@
 """vil_fusion_tpu_torch — PyTorch + CUDA port of vil_fusion_tpu.
 
-This slice runs the LiDAR-only pipeline (`mode="lidar"`): feature
-extraction, scan-to-map odometry and global fusion (ScanContext, ICP loop
-verification, pose graph). The two dense kNN kernels are hand-written CUDA
-(`csrc/knn.cu`, bound in `ops/cuda/knn_cuda.py`); everything else is plain
-PyTorch. Module layout and names mirror `vil_fusion_tpu`, which stays the
-reference. This package imports torch and numpy, never jax.
+Ported so far: the LiDAR-only pipeline (`mode="lidar"`: feature
+extraction, scan-to-map odometry with all its options, global fusion with
+ScanContext, ICP loop verification and pose graph) and the vil frame's
+front end (`runtime.pipeline.vil_front_end`: tracker, lidar odometry,
+extrinsic glue, depth association). The kNN kernels (grouped, exact and
+sparse Morton, `csrc/knn.cu`, bound in `ops/cuda/knn_cuda.py`) are
+hand-written CUDA; everything else is plain PyTorch. Module layout and
+names mirror `vil_fusion_tpu`, which stays the reference. This package
+imports torch and numpy, never jax. Entry points place their tensors on
+`device="cuda"` unless the caller asks for another device.
 """
 
 __version__ = "0.1.0"

@@ -123,7 +123,7 @@ class GlobalFusion:
     """Host orchestration of keyframes, loop queries and graph relaxation."""
 
     def __init__(self, cfg: GlobalFusionConfig = GlobalFusionConfig(),
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)

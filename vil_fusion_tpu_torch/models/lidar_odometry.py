@@ -1,14 +1,17 @@
 """F-LOAM-style LiDAR scan-to-map odometry.
 
-Port of vil_fusion_tpu/models/lidar_odometry.py: brute-force kNN
-correspondences against fixed-capacity voxel-hash maps (K1, the grouped
-CUDA kNN, on the card), closed-form line/plane fits, and n_outer association
-passes x n_inner damped Gauss-Newton steps on one SE(3) block.
+Port of vil_fusion_tpu/models/lidar_odometry.py: kNN correspondences
+against fixed-capacity voxel-hash maps (on the card K1, the grouped CUDA
+kNN, by default; K2 with approx_knn=False; K3, the sparse Morton kNN, with
+sparse_knn=True; a hash-table lookup with use_hash_knn=True), closed-form
+line/plane fits, and n_outer association passes x n_inner damped
+Gauss-Newton steps on one SE(3) block; optional two-pass scan deskew.
 
-Runs eagerly. The reference's two `lax.cond`s on device values become host
+Runs eagerly. The reference's `lax.cond`s on device values become host
 branches: `odometry_step` takes the frame count as a host integer (the
-pipeline keeps a host mirror, so no frame reads the device), and the
-warm/cold choice of the later association passes is a Python `if`.
+pipeline keeps a host mirror, so no frame reads the device); the first
+frame, the warm/cold choice of the later association passes and deskew's
+drop of frame 0 from the maps are Python `if`s on it.
 """
 from __future__ import annotations
 
@@ -16,10 +19,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from vil_fusion_tpu_torch.models.deskew import deskew_points
 from vil_fusion_tpu_torch.models.lidar_features import LidarConfig, LidarFeatures, extract_features
+from vil_fusion_tpu_torch.ops import hash_knn as hknn
 from vil_fusion_tpu_torch.ops import lie
 from vil_fusion_tpu_torch.ops import voxel as voxel_ops
 from vil_fusion_tpu_torch.ops.cuda import knn_cuda as knn_ops  # CUDA kernels on the card, plain on CPU
+from vil_fusion_tpu_torch.ops.knn import morton_sort
 from vil_fusion_tpu_torch.ops.linalg import (gram3, solve_spd_unrolled, sym3x3_principal,
                                              sym3x3_smallest)
 
@@ -39,24 +45,25 @@ class OdomConfig(NamedTuple):
     huber_delta: float = 0.1  # robust loss scale (ceres HuberLoss(0.1))
     lm_lambda: float = 1e-4
     max_corr_dist: float = 3.0  # reject correspondences further than this
-    # Not ported yet (ROADMAP.md, modules still to port): True raises.
+    # voxel-hash kNN (the maps are hash tables, ops/hash_knn.py): a gather of
+    # the neighbour buckets per query instead of a scan of the map
     use_hash_knn: bool = False
-    deskew: bool = False
+    edge_hash_radius: int = 3  # +-3 cells @ 0.4 m = +-1.2 m
+    surf_hash_radius: int = 2  # +-2 cells @ 0.8 m = +-1.6 m
+    deskew: bool = False  # motion-compensate raw scans (models/deskew.py)
+    # Morton-sorted box-skipping kNN (K3), exact within max_corr_dist; meant
+    # for map capacities well beyond the defaults, where skipped blocks
+    # dominate. Scan features and both maps are sorted once per frame.
     sparse_knn: bool = False
     # grouped two-pass top-k merge (K1; bounded approximation of the 5th
     # neighbour); False = exact kNN (K2)
     approx_knn: bool = True
     # re-rank cached pass-1 kNN candidates in later passes of warm frames
     reuse_knn: bool = True
-
-
-def _check_ported(cfg: OdomConfig):
-    for name, item in (("use_hash_knn", "hash kNN"), ("sparse_knn", "K3, the sparse Morton kNN"),
-                       ("deskew", "deskew")):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"OdomConfig.{name}=True needs {item}, which is not ported yet "
-                f"(ROADMAP.md, modules still to port)")
+    # distance form of the dense kernels K1/K2: "expanded" (the reference's
+    # deployed mxu=True form) or "diff" (its mxu=False form); K3 always uses
+    # the difference form, as deployed in the reference
+    knn_form: str = "expanded"
 
 
 class MapState(NamedTuple):
@@ -72,7 +79,7 @@ class MapState(NamedTuple):
     frame_count: torch.Tensor  # int32 scalar
 
 
-def init_state(cfg: OdomConfig, dtype=torch.float32, device="cpu") -> MapState:
+def init_state(cfg: OdomConfig, dtype=torch.float32, device="cuda") -> MapState:
     q0 = torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=device)
     p0 = torch.zeros(3, dtype=dtype, device=device)
     return MapState(
@@ -90,10 +97,21 @@ def init_state(cfg: OdomConfig, dtype=torch.float32, device="cpu") -> MapState:
 # Correspondence building
 # ---------------------------------------------------------------------------
 
-def _map_knn(pts_w, map_pts, map_valid, cfg: OdomConfig):
+def _map_knn(pts_w, map_pts, map_valid, cfg: OdomConfig, res, radius, origin,
+             presorted: bool = False):
+    if cfg.use_hash_knn and origin is not None:
+        return hknn.hash_knn(pts_w, map_pts, map_valid, res, origin,
+                             k=cfg.knn_k, radius=radius)
+    if cfg.sparse_knn:
+        # correspondences are gated on d2[:, -1] < max_corr_dist^2 below, so
+        # the kNN only needs to be exact within that radius: K3
+        return knn_ops.knn(pts_w, map_pts, map_valid, k=cfg.knn_k,
+                           radius=cfg.max_corr_dist,
+                           q_sorted=presorted, db_sorted=presorted)
     # approx: K1 — the line/plane fits behind this are tolerance-gated, so
     # the bounded 5th-neighbour approximation is invisible to them
-    return knn_ops.knn(pts_w, map_pts, map_valid, k=cfg.knn_k, approx=cfg.approx_knn)
+    return knn_ops.knn(pts_w, map_pts, map_valid, k=cfg.knn_k, approx=cfg.approx_knn,
+                       form=cfg.knn_form)
 
 
 def _gather(map_pts, idx):
@@ -181,9 +199,15 @@ def _gn_system(q, p, edge_x, e_cent, e_dir, e_ok, surf_x, s_n, s_d, s_ok, cfg: O
 
 
 def scan_to_map(feats: LidarFeatures, edge_map, edge_map_valid, surf_map, surf_map_valid,
-                q_init, p_init, cfg: OdomConfig, warm: bool = True):
+                q_init, p_init, cfg: OdomConfig, map_origin=None, warm: bool = True):
     """Register a feature scan against the local map: n_outer association
     passes, n_inner damped-GN steps each.
+
+    With sparse_knn both sides are Morton-sorted once here, on every device
+    (the reference sorts on the TPU only, where its sparse kernel runs):
+    rigid motion across the passes keeps the tiles compact, so one sort
+    replaces a sort inside every search. The order is internal; only poses
+    leave this function.
 
     Pass 1 scans the full maps (K1 on the card). On warm frames (`warm`, a
     host bool: odometry frame count >= 3) later passes re-rank the cached
@@ -191,7 +215,17 @@ def scan_to_map(feats: LidarFeatures, edge_map, edge_map_valid, surf_map, surf_m
     frames re-query. As in the reference, the re-ranked d2 rows are sorted
     without permuting idx: the fits read only d2[:, -1] and are symmetric in
     the neighbours. Neighbours missing in pass 1 stay masked."""
-    _check_ported(cfg)
+    presorted = cfg.sparse_knn and not cfg.use_hash_knn
+    if presorted:
+        ep = morton_sort(feats.edge, feats.edge_valid)
+        sp = morton_sort(feats.surf, feats.surf_valid)
+        feats = feats._replace(
+            edge=feats.edge[ep], edge_valid=feats.edge_valid[ep],
+            surf=feats.surf[sp], surf_valid=feats.surf_valid[sp])
+        emp = morton_sort(edge_map, edge_map_valid)
+        edge_map, edge_map_valid = edge_map[emp], edge_map_valid[emp]
+        smp = morton_sort(surf_map, surf_map_valid)
+        surf_map, surf_map_valid = surf_map[smp], surf_map_valid[smp]
     q, p = q_init, p_init
     eye6 = torch.eye(6, dtype=p.dtype, device=p.device)
     cache = {}
@@ -199,8 +233,10 @@ def scan_to_map(feats: LidarFeatures, edge_map, edge_map_valid, surf_map, surf_m
         e_w = lie.qrot(q, feats.edge) + p
         s_w = lie.qrot(q, feats.surf) + p
         if outer == 0 or not cfg.reuse_knn or not warm:
-            e_d2, e_idx = _map_knn(e_w, edge_map, edge_map_valid, cfg)
-            s_d2, s_idx = _map_knn(s_w, surf_map, surf_map_valid, cfg)
+            e_d2, e_idx = _map_knn(e_w, edge_map, edge_map_valid, cfg, cfg.edge_map_voxel,
+                                   cfg.edge_hash_radius, map_origin, presorted)
+            s_d2, s_idx = _map_knn(s_w, surf_map, surf_map_valid, cfg, cfg.surf_map_voxel,
+                                   cfg.surf_hash_radius, map_origin, presorted)
             if outer == 0:
                 cache = dict(e_idx=e_idx, e_fin=torch.isfinite(e_d2).all(-1),
                              s_idx=s_idx, s_fin=torch.isfinite(s_d2).all(-1))
@@ -254,21 +290,38 @@ def odometry_step(state: MapState, points, valid, cfg: OdomConfig = OdomConfig()
 
     `frame_count` is the host mirror of state.frame_count; when None it is
     read from the device (one synchronisation)."""
-    _check_ported(cfg)
     if frame_count is None:
         frame_count = int(state.frame_count)
     # constant-velocity prediction
     q_rel0, p_rel0 = lie.pose_between((state.q_prev, state.p_prev), (state.q, state.p))
     q_pred, p_pred = lie.pose_compose((state.q, state.p), (q_rel0, p_rel0))
 
+    raw_points = points
+    if cfg.deskew:
+        points = deskew_points(points, valid, q_rel0, p_rel0)
+
     feats = extract_features(points, valid, cfg.lidar)
     if frame_count > 0:
         q_new, p_new = scan_to_map(
             feats, state.edge_map, state.edge_map_valid,
             state.surf_map, state.surf_map_valid, q_pred, p_pred, cfg,
-            warm=frame_count >= 3)
+            state.map_origin, warm=frame_count >= 3)
     else:
         q_new, p_new = state.q, state.p
+
+    if cfg.deskew:
+        # second pass: re-deskew the raw scan with the REFINED motion before
+        # inserting into the map (a map mixing differently distorted scans
+        # registers worse than a consistently distorted one)
+        q_ref, p_ref = lie.pose_between((state.q, state.p), (q_new, p_new))
+        feats = extract_features(deskew_points(raw_points, valid, q_ref, p_ref),
+                                 valid, cfg.lidar)
+        # frame 0 went into the map undeskewed (no motion estimate yet);
+        # drop it at frame 1: the map must be uniformly motion-compensated
+        if frame_count == 1:
+            state = state._replace(
+                edge_map_valid=torch.zeros_like(state.edge_map_valid),
+                surf_map_valid=torch.zeros_like(state.surf_map_valid))
 
     maps = _update_maps(state, feats, q_new, p_new, cfg)
     new_state = MapState(

@@ -43,7 +43,7 @@ def _qid(n, dtype, device):
 
 
 def init_graph(capacity: int = 4096, loop_capacity: int = 512, dtype=torch.float32,
-               device="cpu") -> PoseGraph:
+               device="cuda") -> PoseGraph:
     return PoseGraph(
         q=_qid(capacity, dtype, device), p=torch.zeros((capacity, 3), dtype=dtype, device=device),
         n_nodes=torch.zeros((), dtype=torch.int32, device=device),

@@ -30,7 +30,7 @@ class ScanContextDB(NamedTuple):
     count: torch.Tensor  # () int32
 
 
-def init_db(capacity: int = 4096, dtype=torch.float32, device="cpu") -> ScanContextDB:
+def init_db(capacity: int = 4096, dtype=torch.float32, device="cuda") -> ScanContextDB:
     return ScanContextDB(
         desc=torch.zeros((capacity, N_RING, N_SECTOR), dtype=dtype, device=device),
         ring_key=torch.zeros((capacity, N_RING), dtype=dtype, device=device),

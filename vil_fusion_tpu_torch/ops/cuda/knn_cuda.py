@@ -1,12 +1,16 @@
-"""kNN dispatcher and the CUDA wrappers of K1 (grouped) and K2 (exact).
+"""kNN dispatcher and the CUDA wrappers of K1 (grouped), K2 (exact) and K3
+(sparse).
 
 Counterpart of vil_fusion_tpu/ops/pallas/knn_pallas.py: `knn` keeps the
 dispatcher's signature (knn_pallas.py:496-528) and routes by the tensors'
-device. On CUDA, `approx=True` goes to K1 (`knn_grouped`, replacing
+device. On CUDA, `radius=` goes to K3 (`knn_sparse`, replacing
+`_sparse_knn_kernel`: Morton-sorted sides, far blocks skipped, difference-
+form distances), `approx=True` to K1 (`knn_grouped`, replacing
 `_knn_kernel_grouped`) and everything else to K2 (`knn_exact`, replacing
-`_knn_kernel` packed+mxu); `radius` (the Morton-sorted sparse kernel K3) is
-not ported yet and raises. A CPU tensor goes to the plain PyTorch versions
-in ops/knn.py, re-exported here as `knn_grouped_plain` / `knn_exact_plain`.
+`_knn_kernel`); K1 and K2 take `form="expanded"` (the reference's mxu=True
+form, the default) or `form="diff"` (its mxu=False form). A CPU tensor goes
+to the plain PyTorch versions in ops/knn.py, re-exported here as
+`knn_grouped_plain` / `knn_exact_plain` / `knn_sparse_plain`.
 
 The kernels are CUDA C++ (csrc/knn.cu), compiled with nvcc for sm_90a into
 build/kernels/ at first use and bound with ctypes: pointers from
@@ -37,8 +41,15 @@ MAX_K = 8
 _THREADS = 128  # queries per block and columns per group (csrc/knn.cu)
 _BLOCKS_PER_SM = 8  # database split target: enough blocks to fill the card
 
+# K3's tiles on this card: a block of 128 Morton-consecutive queries against
+# 128-column database tiles (the reference's 512 x 1024 were sized for VMEM;
+# smaller tiles have tighter boxes and skip more)
+SPARSE_Q_TILE = 128
+SPARSE_DB_TILE = 128
+
 knn_exact_plain = knn_plain.knn
 knn_grouped_plain = knn_plain.knn_grouped
+knn_sparse_plain = knn_plain.knn_sparse
 
 _lib = None
 
@@ -70,7 +81,11 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             print(_ptxas_summary(res.stdout + res.stderr), flush=True)
     lib = ctypes.CDLL(str(out))
     fn = lib.vil_knn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    fn = lib.vil_knn_sparse_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
                    + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     _lib = lib
@@ -82,23 +97,29 @@ def _ptxas_summary(log: str, ks=(1, 5)) -> str:
     path uses (k in `ks`), from nvcc's -Xptxas -v report."""
     out, label = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(knn_(?:partial|merge)_kernel)ILi(\d)E"
-                      r"(?:Lb([01])E)?", line)
+        m = re.search(r"Compiling entry function '\w*?(knn_(?:sparse_partial|partial|merge)"
+                      r"_kernel)ILi(\d)E(?:Lb([01])ELb([01])E)?", line)
         if m:
-            kind = {"1": ", grouped", "0": ", exact"}.get(m.group(3), "")
+            kind = ({"1": ", grouped", "0": ", exact"}.get(m.group(3), "")
+                    + {"1": ", diff", "0": ", expanded"}.get(m.group(4), ""))
             label = f"{m.group(1)}<k={m.group(2)}{kind}>" if int(m.group(2)) in ks else None
         elif label and ("Used" in line or "spill" in line):
             out.append(f"  {label}: {line.split(':', 1)[-1].strip()}")
     return "\n".join(out)
 
 
+def _n_split(n_qb: int, parts: int, device) -> int:
+    """Blocks along gridDim.y so that (query blocks x splits) fills the
+    card, at most one per part (128-column group or database tile)."""
+    target = _BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+    return min(parts, max(1, -(-target // n_qb)))
+
+
 def _split(nq: int, nd: int, device) -> tuple[int, int]:
     """(n_split, chunk): database chunks of whole 128-column groups, enough
     of them that (query blocks x chunks) fills the card."""
-    n_qb = -(-nq // _THREADS)
     groups = max(1, -(-nd // _THREADS))
-    target = _BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
-    n_split = min(groups, max(1, -(-target // n_qb)))
+    n_split = _n_split(-(-nq // _THREADS), groups, device)
     chunk_groups = -(-groups // n_split)
     return -(-groups // chunk_groups), chunk_groups * _THREADS
 
@@ -123,8 +144,9 @@ def _check(queries, database, db_valid, k: int):
         raise ValueError(f"k={k} outside 1..{MAX_K}")
 
 
-def _launch(queries, database, db_valid, k: int, grouped: bool):
+def _launch(queries, database, db_valid, k: int, grouped: bool, form: str):
     _check(queries, database, db_valid, k)
+    knn_plain._check_form(form)
     lib = build()
     dev = queries.device
     nq, nd = queries.shape[0], database.shape[0]
@@ -139,55 +161,126 @@ def _launch(queries, database, db_valid, k: int, grouped: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vil_knn_launch(
             queries.data_ptr(), database.data_ptr(), db_valid.data_ptr(),
-            nq, nd, k, int(grouped), chunk, n_split,
+            nq, nd, k, int(grouped), int(form == "diff"), chunk, n_split,
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"vil_knn_launch failed with cudaError {err} "
-                           f"(nq={nq}, nd={nd}, k={k}, grouped={grouped})")
+                           f"(nq={nq}, nd={nd}, k={k}, grouped={grouped}, form={form})")
     return out_d, out_i
 
 
-def knn_grouped(queries, database, db_valid, k: int = 5):
+def knn_grouped(queries, database, db_valid, k: int = 5, form: str = "expanded"):
     """K1: grouped approximate kNN (semantics of ops/knn.py:knn_grouped).
     CUDA tensors launch csrc/knn.cu; CPU tensors take the plain version."""
     if queries.device.type == "cpu":
-        return knn_grouped_plain(queries, database, db_valid, k=k)
-    out = _launch(queries, database, db_valid, k, grouped=True)
+        return knn_grouped_plain(queries, database, db_valid, k=k, form=form)
+    out = _launch(queries, database, db_valid, k, grouped=True, form=form)
     knn_grouped.launches += 1
+    knn_grouped.launches_diff += form == "diff"
+    knn_grouped.last_call = (queries.shape[0], database.shape[0], k)
     return out
 
 
-knn_grouped.launches = 0
+knn_grouped.launches = 0  # kernel launches, both forms
+knn_grouped.launches_diff = 0  # those with form="diff"
+knn_grouped.last_call = None  # (Nq, Nd, k) of the latest launch
 
 
-def knn_exact(queries, database, db_valid, k: int = 5, tile: int = 2048):
+def knn_exact(queries, database, db_valid, k: int = 5, tile: int = 2048,
+              form: str = "expanded"):
     """K2: exact kNN, ties to the lower index. CUDA tensors launch
     csrc/knn.cu (`tile` is the plain version's scan tile); CPU tensors take
     the plain version."""
     if queries.device.type == "cpu":
-        return knn_exact_plain(queries, database, db_valid, k=k, tile=tile)
-    out = _launch(queries, database, db_valid, k, grouped=False)
+        return knn_exact_plain(queries, database, db_valid, k=k, tile=tile, form=form)
+    out = _launch(queries, database, db_valid, k, grouped=False, form=form)
     knn_exact.launches += 1
+    knn_exact.launches_diff += form == "diff"
+    knn_exact.last_call = (queries.shape[0], database.shape[0], k)
     return out
 
 
 knn_exact.launches = 0
+knn_exact.launches_diff = 0
+knn_exact.last_call = None
+
+
+def sparse_search_cuda(prob: knn_plain.SparseProblem, k: int, radius: float, db_tile: int):
+    """K3's kernel on a prepared problem (ops/knn.py:sparse_prepare, query
+    tile 128): the CUDA counterpart of `sparse_search_plain`. Returns rows of
+    the tiled problem (ascending, sorted-database indices, index 0 where
+    missing). Counts one launch."""
+    lib = build()
+    dev = prob.q.device
+    nqp, ndp = prob.q.shape[0], prob.db.shape[0]
+    n_split = _n_split(nqp // _THREADS, ndp // db_tile, dev)
+    out_d = torch.empty((nqp, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nqp, k), dtype=torch.int32, device=dev)
+    part_d = torch.empty((nqp, n_split, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((nqp, n_split, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vil_knn_sparse_launch(
+            prob.q.data_ptr(), prob.db.data_ptr(), prob.db_valid.data_ptr(),
+            prob.q_lo.data_ptr(), prob.q_hi.data_ptr(), prob.d_lo.data_ptr(),
+            prob.d_hi.data_ptr(), nqp, ndp, k, db_tile, n_split, float(radius) ** 2,
+            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"vil_knn_sparse_launch failed with cudaError {err} "
+                           f"(nq={nqp}, nd={ndp}, k={k}, db_tile={db_tile})")
+    knn_sparse.launches += 1
+    return out_d, out_i
+
+
+def knn_sparse(queries, database, db_valid, k: int = 5, radius: float = 3.0,
+               q_tile: int = SPARSE_Q_TILE, db_tile: int = SPARSE_DB_TILE,
+               cell: float = 2.0, q_sorted: bool = False, db_sorted: bool = False):
+    """K3: kNN exact for every neighbour within `radius` (farther ones may
+    come back missing; callers gate on d2 < radius^2). Semantics of
+    ops/knn.py:knn_sparse, whose Morton sort, tile boxes and finishing step
+    this shares (plain tensor code, as in the reference); the block-skipping
+    search itself is the CUDA kernel. On CUDA q_tile must be 128 (one query
+    per thread) and db_tile a multiple of 128. CPU tensors take the plain
+    version."""
+    if queries.device.type == "cpu":
+        return knn_sparse_plain(queries, database, db_valid, k=k, radius=radius,
+                                q_tile=q_tile, db_tile=db_tile, cell=cell,
+                                q_sorted=q_sorted, db_sorted=db_sorted)
+    _check(queries, database, db_valid, k)
+    if q_tile != _THREADS or db_tile <= 0 or db_tile % _THREADS:
+        raise ValueError(f"on CUDA q_tile must be {_THREADS} and db_tile a multiple "
+                         f"of {_THREADS}, got {q_tile} and {db_tile}")
+    nq = queries.shape[0]
+    if nq == 0 or database.shape[0] == 0:
+        return (torch.full((nq, k), float("inf"), device=queries.device),
+                torch.zeros((nq, k), dtype=torch.int32, device=queries.device))
+    prob = knn_plain.sparse_prepare(queries, database, db_valid, q_tile, db_tile, cell,
+                                    q_sorted, db_sorted)
+    out_d, out_i = sparse_search_cuda(prob, k, radius, db_tile)
+    knn_sparse.last_call = (nq, database.shape[0], k)
+    return knn_plain.sparse_finish(prob, out_d, out_i)
+
+
+knn_sparse.launches = 0
+knn_sparse.last_call = None
 
 
 def knn(queries, database, db_valid, k: int = 5, tile: int = 4096,
         radius: float | None = None,
         q_sorted: bool = False, db_sorted: bool = False,
-        approx: bool = False):
-    """Dispatch (signature of knn_pallas.knn): K1 for approx=True, K2
-    otherwise. `radius` selects the sparse Morton/AABB kernel on the TPU,
-    which is not ported: on CUDA it raises NotImplementedError; on the CPU
-    the exact search is exact within any radius, as on the JAX CPU path.
-    q_sorted/db_sorted only concern that sparse kernel."""
-    if radius is not None and queries.device.type != "cpu":
-        raise NotImplementedError(
-            "knn(radius=...) needs K3, the sparse Morton kNN, which is not "
-            "ported yet (ROADMAP.md, TPU kernels still to port)")
-    if approx:
-        return knn_grouped(queries, database, db_valid, k=k)
-    return knn_exact(queries, database, db_valid, k=k, tile=min(tile, 2048))
+        approx: bool = False, form: str = "expanded"):
+    """Dispatch (signature of knn_pallas.knn plus `form`). With `radius`
+    results are only guaranteed exact for neighbours within that distance:
+    K3, whatever `approx` says (the grouped merge is wrong on spatially
+    sorted buffers, so K1 is never chosen with radius, q_sorted or
+    db_sorted). Otherwise K1 for approx=True and K2 for the rest, in the
+    distance form `form`. q_sorted/db_sorted: that side is already in Morton
+    order (ops/knn.py:morton_sort) and results come back in the given order."""
+    if radius is not None:
+        return knn_sparse(queries, database, db_valid, k=k, radius=radius,
+                          q_sorted=q_sorted, db_sorted=db_sorted)
+    if approx and not (q_sorted or db_sorted):
+        return knn_grouped(queries, database, db_valid, k=k, form=form)
+    return knn_exact(queries, database, db_valid, k=k, tile=min(tile, 2048), form=form)

@@ -1,9 +1,9 @@
 """Small closed-form linear algebra for batched geometry.
 
-Port of vil_fusion_tpu/ops/linalg.py (the parts the LiDAR slice runs):
-Cardano eigenvalues + cross-product eigenvectors for thousands of 3x3
-covariances per frame, and the unrolled Cholesky solve of the 6x6
-Gauss-Newton system.
+Port of vil_fusion_tpu/ops/linalg.py: Cardano eigenvalues + cross-product
+eigenvectors for thousands of 3x3 covariances per frame, the unrolled
+Cholesky solve of the 6x6 Gauss-Newton system, and what the tracker's RANSAC
+needs (Cramer 3x3 solve, smallest eigenvector by inverse iteration).
 """
 from __future__ import annotations
 
@@ -127,3 +127,43 @@ def solve_spd_unrolled(A, b):
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1)
+
+
+def solve3x3(A, b):
+    """Batched closed-form 3x3 solve by Cramer's rule (A (..., 3, 3),
+    b (..., 3)). Singular A gives non-finite output; callers gate."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a12 * a20 - a10 * a22
+    c02 = a10 * a21 - a11 * a20
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    inv_det = 1.0 / det
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    x0 = (c00 * b0 + (a02 * a21 - a01 * a22) * b1 + (a01 * a12 - a02 * a11) * b2)
+    x1 = (c01 * b0 + (a00 * a22 - a02 * a20) * b1 + (a02 * a10 - a00 * a12) * b2)
+    x2 = (c02 * b0 + (a01 * a20 - a00 * a21) * b1 + (a00 * a11 - a01 * a10) * b2)
+    return torch.stack([x0, x1, x2], dim=-1) * inv_det[..., None]
+
+
+def smallest_eigvec_inverse_iteration(A, iters: int = 4, shift: float = 1e-6):
+    """Smallest eigenvector of each symmetric PSD (..., n, n) by inverse
+    iteration on one Cholesky factor (factor once, `iters` pairs of
+    triangular solves). Assumes the smallest eigenvalue is well separated
+    (true for RANSAC nullspace problems; a degenerate hypothesis, whose
+    factorization fails, falls back to the identity factor and yields a
+    garbage vector that the consensus scoring rejects)."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    M = A + (shift * torch.clamp(tr, min=1e-12) / n) * eye
+    L, info = torch.linalg.cholesky_ex(M)
+    bad = (info != 0) | ~torch.isfinite(L[..., n - 1, n - 1])
+    L = torch.where(bad[..., None, None], eye, L)
+    x = torch.ones(A.shape[:-1], dtype=A.dtype, device=A.device)
+    for _ in range(iters):
+        y = torch.linalg.solve_triangular(L, x[..., None], upper=False)
+        z = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+        x = z / torch.clamp(torch.linalg.norm(z, dim=-1, keepdim=True), min=1e-30)
+    return x

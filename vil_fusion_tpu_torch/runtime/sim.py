@@ -8,9 +8,10 @@ all with known ground truth — so every estimator stage can be golden-tested.
 
 Host-side numpy (float64) on purpose: this is test scaffolding, not the
 compute path. This is the numpy part of vil_fusion_tpu/runtime/sim.py,
-carried over unchanged (LiDAR scene, trajectories and the scan simulator)
-so that the port needs no jax; the IMU and camera simulators and the
-device raycaster come with the slices that use them.
+carried over unchanged (LiDAR scene, trajectories, the scan simulators and
+the textured camera render) so that the port needs no jax; the IMU and
+feature-track simulators and the device raycaster come with the slices that
+use them.
 """
 from __future__ import annotations
 
@@ -258,3 +259,73 @@ def simulate_lidar_scan(scene: RaycastScene, R_wb, p_wb, n_scan: int = 32,
     valid = np.isfinite(t)
     pts_b = dirs_b * np.where(valid, t, 0.0)[:, None]
     return pts_b.astype(np.float32), valid
+
+
+# camera sensor-model constants of the render
+SKY_VALUE = 0.9  # miss pixels
+ATTENUATION = 0.004  # 1/(1 + ATTENUATION*range) distance dimming
+
+
+def _texture_field(x, y, z, xp=np):
+    """Smooth multi-scale intensity field over 3D surface points (trackable
+    texture for the KLT front end)."""
+    v = (0.45
+         + 0.18 * xp.sin(1.3 * x) * xp.sin(1.9 * y + 0.7)
+         + 0.12 * xp.sin(3.1 * y + 0.3) * xp.cos(2.3 * z)
+         + 0.10 * xp.sin(5.7 * x + 2.1 * z)
+         + 0.08 * xp.sin(11.0 * x) * xp.sin(9.0 * y) * xp.sin(8.0 * z + 1.0))
+    return xp.clip(v, 0.0, 1.0)
+
+
+def _procedural_texture(pts):
+    return _texture_field(pts[:, 0], pts[:, 1], pts[:, 2], np)
+
+
+def render_camera_image(scene: RaycastScene, R_wc, p_wc, fx, fy, cx, cy,
+                        height, width, max_range=120.0):
+    """Raycast grayscale image from a camera (RDF, z forward) at (R_wc, p_wc).
+
+    Surfaces carry a procedural texture; misses render as sky (0.9).
+    Returns (height, width) float32 in [0, 1]."""
+    u, v = np.meshgrid(np.arange(width), np.arange(height))
+    dirs_c = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u, np.float64)], -1)
+    dirs_c /= np.linalg.norm(dirs_c, axis=-1, keepdims=True)
+    dirs_w = dirs_c.reshape(-1, 3) @ R_wc.T
+    origins = np.broadcast_to(p_wc, dirs_w.shape)
+    t = scene.raycast(origins, dirs_w, max_range=max_range)
+    hit = np.isfinite(t)
+    pts = origins + np.where(hit, t, 0.0)[:, None] * dirs_w
+    img = np.full(len(dirs_w), SKY_VALUE)
+    img[hit] = _procedural_texture(pts[hit])
+    # mild distance attenuation adds large-scale gradient
+    img[hit] *= 1.0 / (1.0 + ATTENUATION * t[hit])
+    return img.reshape(height, width).astype(np.float32)
+
+
+def simulate_lidar_scan_distorted(scene, traj, t_end, frame_dt, body_offset,
+                                  n_scan=32, width=900, fov_up_deg=30.0,
+                                  fov_down_deg=-30.0, max_range=80.0,
+                                  n_segments=10):
+    """Rolling-shutter LiDAR: the azimuth sweep spans [t_end - frame_dt,
+    t_end]; each azimuth segment is raycast from the sensor pose at its
+    capture time and expressed in THAT body frame (raw spinning-lidar
+    behavior). Ground truth frame = end-of-scan pose."""
+    seg_w = width // n_segments
+    pts = np.zeros((n_scan * width, 3), np.float32)
+    val = np.zeros((n_scan * width,), bool)
+    for g in range(n_segments):
+        s_frac = (g + 0.5) / n_segments
+        t_g = t_end - (1.0 - s_frac) * frame_dt
+        R_g = traj.rotation(t_g)
+        p_g = traj.position(t_g) + body_offset
+        p_full, v_full = simulate_lidar_scan(
+            scene, R_g, p_g, n_scan=n_scan, width=width,
+            fov_up_deg=fov_up_deg, fov_down_deg=fov_down_deg,
+            max_range=max_range)
+        cols = slice(g * seg_w, (g + 1) * seg_w)
+        m = np.zeros((n_scan, width), bool)
+        m[:, cols] = True
+        m = m.reshape(-1)
+        pts[m] = p_full[m]
+        val[m] = v_full[m]
+    return pts, val

@@ -2,7 +2,8 @@
 
 The system has no learned weights: its odometry maps, pose graph,
 ScanContext database and keyframe cloud store are what two runs have to
-agree on. These helpers turn state given as numpy arrays (the JAX package's
+agree on (and, with the visual front end, the tracker's slot store and the
+camera parameters). These helpers turn state given as numpy arrays (the JAX package's
 NamedTuples convert with np.asarray, so no jax import is needed here) into
 the port's tensors on a given device, and back.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vil_fusion_tpu_torch.models import cameras
 from vil_fusion_tpu_torch.models import global_fusion as gf
 from vil_fusion_tpu_torch.models.posegraph import PoseGraph
 from vil_fusion_tpu_torch.models.scancontext import ScanContextDB
@@ -28,13 +30,25 @@ def to_numpy(state) -> dict:
     return {k: _np(v) for k, v in state._asdict().items()}
 
 
-def to_torch(cls, arrays, device="cpu"):
+def to_torch(cls, arrays, device="cuda"):
     """{field: array} (or a NamedTuple of arrays) -> cls of tensors on
     `device`; dtypes are kept (float32, int32, bool). E.g.
-    `to_torch(lidar_odometry.MapState, to_numpy(jax_state), "cuda")`."""
+    `to_torch(lidar_odometry.MapState, to_numpy(jax_state))`, or
+    `to_torch(tracker.TrackerState, to_numpy(jax_tracker_state))`."""
     if hasattr(arrays, "_asdict"):
         arrays = arrays._asdict()
     return cls(**{k: torch.from_numpy(np.array(arrays[k])).to(device) for k in cls._fields})
+
+
+def camera_to_torch(cam):
+    """Camera parameters of either package (a NamedTuple of Python numbers
+    and tuples, named PinholeCamera, MeiCamera, EquidistantCamera or
+    ScaramuzzaCamera) -> the port's camera model of the same name. The
+    models hold no tensors, so there is no device to choose."""
+    cls = getattr(cameras, type(cam).__name__)
+    return cls(**{f: (tuple(float(x) for x in v) if isinstance(v, (tuple, list, np.ndarray))
+                      else float(v))
+                  for f, v in cam._asdict().items()})
 
 
 _FUSION_HOST = ("kf_q_odom", "kf_p_odom", "kf_ts", "n_kf", "last_q", "last_p",
