@@ -12,7 +12,10 @@ Phases, any failure exits non-zero:
      K1 (grouped kNN) and K2 (exact kNN) in both distance forms on
      simulator-derived maps and random clouds (edge, surf, ICP shapes), K2
      at the depth-association shape (192 rays x 115,200 sphere points,
-     k=3), K3 (sparse Morton kNN) at edge 2048 x 65,536 and surf
+     k=3), K1 and K2 in both forms at few-query and ragged shapes (1-513
+     queries, 130-115,200 points, k = 1, 3, 8), each record with the kernels
+     a call launches as the library counts them at its launch sites (1, or
+     2 where the database is split and merged; held against the plan), K3 (sparse Morton kNN) at edge 2048 x 65,536 and surf
      8192 x 131,072 (presorted simulator maps) and on a clustered random
      cloud, strictly against the plain sparse search and against the plain
      exact search inside the radius, with the share of blocks skipped; the
@@ -40,6 +43,7 @@ last line is {"ok": true, "device": {...}}. Imports nothing of jax.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -83,6 +87,8 @@ MAP_CAPS = (16384, 32768)
 MAP_CAPS_4X = (65536, 131072)
 ICP_CLOUDS, CLOUD_PTS = 25, 2048
 RADIUS = 3.0  # OdomConfig.max_corr_dist, K3's radius
+# few-query and ragged shapes of the kernels phase (random clouds)
+RAGGED_NQ, RAGGED_ND, RAGGED_K = (1, 127, 129, 192, 513), (130, 4097, 115200), (1, 3, 8)
 IMG_H, IMG_W, FX, CX, CY = 370, 1226, 718.856, 607.19, 185.22
 SCAN_QUANT = 0.0025
 # H100 SXM peaks for the bounds (NVIDIA data sheet): FP32 on the CUDA cores,
@@ -206,7 +212,7 @@ def _margin_rows(d_ref, k: int):
     return ok.all(dim=1) & torch.isfinite(d[:, 0])
 
 
-def _compare(name, d_k, i_k, d_p, i_p, d_p_more, k, rows=None, strict=False):
+def _compare(name, d_k, i_k, d_p, i_p, d_p_more, k, rows=None, strict=False, quiet=False):
     """Kernel (d_k, i_k) against plain (d_p, i_p) on `rows` (all by
     default); d_p_more is the plain search with k+1 neighbours for the
     margin test. Distances must agree within 1e-6 of the largest one
@@ -229,8 +235,9 @@ def _compare(name, d_k, i_k, d_p, i_p, d_p_more, k, rows=None, strict=False):
                              f"pick other neighbours than the plain version")
     if (i_k[~torch.isfinite(d_k)] != 0).any():
         raise AssertionError(f"{name}: missing neighbours must carry index 0")
-    print(f"  {name}: kernel == plain on {int(clear.sum())}/{clear.numel()} "
-          f"unambiguous rows, max |d2 diff| {err:.3g} (tol {tol:.3g})", flush=True)
+    if not quiet:
+        print(f"  {name}: kernel == plain on {int(clear.sum())}/{clear.numel()} "
+              f"unambiguous rows, max |d2 diff| {err:.3g} (tol {tol:.3g})", flush=True)
     return err
 
 
@@ -250,15 +257,20 @@ def _grouped_bounds(name, d_g, d_x, gate=None):
           f"{exact_rows:.4f}, max 5th-NN ratio {ratio:.3f}", flush=True)
 
 
-def _kernel_phase(frames, dev):
-    """Phase 3. Returns {kernel name: record} without launch counts."""
+def _kernel_inputs(frames, dev, big=True):
+    """Inputs of the kernels phase, as the main paths build them, from
+    `frames` (at least ICP_CLOUDS of them): `cases` {edge, surf, icp: (q, db,
+    valid on simulator maps, the same three on random clouds, k, grouped)},
+    the depth-association rays / sphere / sphere_ok, and with `big` the 4x
+    maps (hash-voxel merges of every frame but the query frame) with their
+    queries e_q / s_q."""
+    import types
+
     import numpy as np
     import torch
 
     from vil_fusion_tpu_torch.models import lidar_features as lf
-    from vil_fusion_tpu_torch.ops import hash_knn, lie, voxel
-    from vil_fusion_tpu_torch.ops import knn as knn_plain
-    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.ops import lie, voxel
     from vil_fusion_tpu_torch.runtime import sim
 
     lcfg = lf.LidarConfig(n_scan=SCAN["n_scan"], width=SCAN["width"], min_range=1.0,
@@ -292,11 +304,14 @@ def _kernel_phase(frames, dev):
         return em, eo, sm, so
 
     edge_map, edge_ok, surf_map, surf_ok = maps(MAP_CAPS, frames[:6])
-    # the 4x maps hold the whole sequence except the query frame
-    q_idx = len(frames) // 2
-    big = maps(MAP_CAPS_4X, frames[:q_idx] + frames[q_idx + 1:])
     fq = feats(frames[6])
-    fq_big = feats(frames[q_idx])
+    big_maps = e_q = s_q = None
+    if big:  # the 4x maps hold the whole sequence except the query frame
+        q_idx = len(frames) // 2
+        big_maps = maps(MAP_CAPS_4X, frames[:q_idx] + frames[q_idx + 1:])
+        fq_big = feats(frames[q_idx])
+        e_q = world(frames[q_idx], fq_big.edge).contiguous()
+        s_q = world(frames[q_idx], fq_big.surf).contiguous()
     ecap, scap = MAP_CAPS
     # ICP target: 25 keyframe clouds of 2048 subsampled points (51,200)
     n_pts = frames[0][1].shape[0]
@@ -335,18 +350,50 @@ def _kernel_phase(frames, dev):
                          device=dev)
     rays = torch.cat([xy, torch.ones_like(xy[:, :1])], dim=-1)
     rays = (rays / torch.linalg.norm(rays, dim=-1, keepdim=True)).contiguous()
+    return types.SimpleNamespace(cases=cases, rays=rays, sphere=sphere.contiguous(),
+                                 sphere_ok=sphere_ok, big=big_maps, e_q=e_q, s_q=s_q,
+                                 origin=origin, gen=gen, rnd=rnd, rnd_valid=rnd_valid)
 
+
+def _kernel_phase(frames, dev):
+    """Phase 3. Returns {kernel name: record} without launch counts."""
+    import torch
+
+    from vil_fusion_tpu_torch.ops import hash_knn
+    from vil_fusion_tpu_torch.ops import knn as knn_plain
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+
+    inp = _kernel_inputs(frames, dev)
+    cases, rays, sphere, sphere_ok = inp.cases, inp.rays, inp.sphere, inp.sphere_ok
+    big, e_q, s_q, origin, gen, rnd, rnd_valid = (inp.big, inp.e_q, inp.s_q, inp.origin, inp.gen,
+                                                  inp.rnd, inp.rnd_valid)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    edge_map, edge_ok = cases["edge"][1:3]
+    surf_map, surf_ok = cases["surf"][1:3]
     errs = {}
     shapes = {}  # kernel name -> {shape label: dict(ms, plain_ms, bound_ms, bound_by)}
 
-    def note(kname, label, nq, nd, k, ms, plain_ms, pairs=None, extra_bytes=0, **more):
+    def note(kname, label, nq, nd, k, call, plain_ms, pairs=None, extra_bytes=0, **more):
+        """Time `call` (one wrapper call at this shape) and count the kernels
+        it enqueues, read from the library's own counter around one call: K3
+        its search and the merge, K1 / K2 the merge only where the plan
+        splits the database."""
         b_ms, b_by = _knn_bound(nq, nd, k, pairs, extra_bytes)
+        ms = _time_ms(call)
+        before = kc.kernels_enqueued()
+        call()
+        per_call = kc.kernels_enqueued() - before
+        planned = 2 if kname == "K3" else 1 + kc.plan(nq, nd, k, sm_count,
+                                                      kname.startswith("K1")).merge
+        if per_call != planned:
+            raise AssertionError(f"{kname} {label} {nq}x{nd} k={k}: the call enqueued "
+                                 f"{per_call} kernels, its plan says {planned}")
         shapes.setdefault(kname, {})[label] = dict(
             shape=f"{nq}x{nd} k={k}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            **more)
+            launches_per_call=per_call, **more)
         plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
-        print(f"  {kname} {label} {nq}x{nd} k={k}: kernel {ms:.4f} ms, plain {plain_txt}, "
-              f"bound {b_ms:.5f} ms by {b_by} (CUDA-event medians)", flush=True)
+        print(f"  {kname} {label} {nq}x{nd} k={k}: kernel {ms:.4f} ms in {per_call} launch(es), "
+              f"plain {plain_txt}, bound {b_ms:.5f} ms by {b_by} (CUDA-event medians)", flush=True)
 
     # --- K1 / K2, both distance forms, against their plain versions ---
     for form in ("expanded", "diff"):
@@ -367,9 +414,9 @@ def _kernel_phase(frames, dev):
                     gate = None if variant == "random" else d_x[:, -1] < 9.0
                     _grouped_bounds(label, d_k, d_x, gate)
             q, db, v = q_s, db_s, v_s
-            ms = _time_ms(lambda: kern(q, db, v, k=k, form=form))
             plain_ms = _time_ms(lambda: plain(q, db, v, k=k, form=form))
-            note(kname, name, q.shape[0], db.shape[0], k, ms, plain_ms)
+            note(kname, name, q.shape[0], db.shape[0], k,
+                 lambda: kern(q, db, v, k=k, form=form), plain_ms)
             if grouped:  # the exact kernel at the association shape (approx_knn=False)
                 kx = "K2" + (" diff" if form == "diff" else "")
                 d_k, i_k = kc.knn_exact(q, db, v, k=k, form=form)
@@ -378,10 +425,9 @@ def _kernel_phase(frames, dev):
                 errs[kx] = max(errs.get(kx, 0.0),
                                _compare(f"{kx} {name} sim k={k}", d_k, i_k, d_p, i_p, d_more, k))
                 note(kx, name, q.shape[0], db.shape[0], k,
-                     _time_ms(lambda: kc.knn_exact(q, db, v, k=k, form=form)), None)
+                     lambda: kc.knn_exact(q, db, v, k=k, form=form), None)
 
     # --- K2 at the depth-association shape ---
-    sphere = sphere.contiguous()
     d_k, i_k = kc.knn_exact(rays, sphere, sphere_ok, k=3)
     d_p, i_p = kc.knn_exact_plain(rays, sphere, sphere_ok, k=3)
     d_more, _ = kc.knn_exact_plain(rays, sphere, sphere_ok, k=4)
@@ -389,8 +435,48 @@ def _kernel_phase(frames, dev):
     errs["K2"] = max(errs["K2"], _compare(f"K2 depth sim {rays.shape[0]}x{sphere.shape[0]} k=3",
                                           d_k, i_k, d_p, i_p, d_more, 3))
     note("K2", "depth", rays.shape[0], sphere.shape[0], 3,
-         _time_ms(lambda: kc.knn_exact(rays, sphere, sphere_ok, k=3)),
+         lambda: kc.knn_exact(rays, sphere, sphere_ok, k=3),
          _time_ms(lambda: kc.knn_exact_plain(rays, sphere, sphere_ok, k=3)))
+
+    # --- few and ragged queries, ragged databases: K1 / K2 in both forms ---
+    n_ragged, by_kernels = 0, {1: 0, 2: 0}  # shapes, and those of 1 / 2 kernels a call
+    for nd in RAGGED_ND:
+        db, v = rnd(nd), rnd_valid(nd)
+        for nq in RAGGED_NQ:
+            q = rnd(nq)
+            for k, form, grouped in itertools.product(RAGGED_K, ("expanded", "diff"),
+                                                      (True, False)):
+                kern = kc.knn_grouped if grouped else kc.knn_exact
+                plain = kc.knn_grouped_plain if grouped else kc.knn_exact_plain
+                kname = ("K1" if grouped else "K2") + (" diff" if form == "diff" else "")
+                before = kc.kernels_enqueued()
+                d_k, i_k = kern(q, db, v, k=k, form=form)
+                enqueued = kc.kernels_enqueued() - before
+                if enqueued != 1 + kc.plan(nq, nd, k, sm_count, grouped).merge:
+                    raise AssertionError(f"{kname} ragged {nq}x{nd} k={k}: the call enqueued "
+                                         f"{enqueued} kernels against its plan")
+                by_kernels[enqueued] += 1
+                d_p, i_p = plain(q, db, v, k=k, form=form)
+                d_more, _ = plain(q, db, v, k=k + 1, form=form)
+                torch.cuda.synchronize()
+                errs[kname] = max(errs[kname], _compare(
+                    f"{kname} ragged {nq}x{nd} k={k}", d_k, i_k, d_p, i_p, d_more, k, quiet=True))
+                n_ragged += 1
+    print(f"  K1 / K2, both forms: kernel == plain at {n_ragged} few-query and ragged shapes "
+          f"(nq in {RAGGED_NQ}, nd in {RAGGED_ND}, k in {RAGGED_K}); kernels a call, counted "
+          f"at the launch sites: 1 at {by_kernels[1]} shapes (no split, no merge), 2 at "
+          f"{by_kernels[2]}", flush=True)
+
+    # --- an aside for the reader, no yardstick (two calls and an (Nq, Nd)
+    #     matrix in device memory) and never called by the port ---
+    def cdist_topk(q, db, v, k):
+        d2 = torch.cdist(q, db).square_().masked_fill_(~v[None, :], float("inf"))
+        return torch.topk(d2, k, dim=1, largest=False)
+
+    for label, (q, db, v, k) in (("surf", (*cases["surf"][:3], 5)),
+                                 ("depth", (rays, sphere, sphere_ok, 3))):
+        print(f"  aside: torch.cdist + torch.topk at {label} {q.shape[0]}x{db.shape[0]} k={k}: "
+              f"{_time_ms(lambda: cdist_topk(q, db, v, k), reps=10):.4f} ms", flush=True)
 
     # --- K3: strict against the plain sparse search, exact inside the radius ---
     qt, dt = kc.SPARSE_Q_TILE, kc.SPARSE_DB_TILE
@@ -428,8 +514,6 @@ def _kernel_phase(frames, dev):
         return q, db, v, pairs, boxes
 
     k3_inputs = {}
-    e_q = world(frames[q_idx], fq_big.edge).contiguous()
-    s_q = world(frames[q_idx], fq_big.surf).contiguous()
     k3_inputs["edge 4x"] = k3_case("edge 4x", e_q, big[0], big[1], 5, True)
     k3_inputs["surf 4x"] = k3_case("surf 4x", s_q, big[2], big[3], 5, True)
     k3_inputs["edge"] = k3_case("edge", cases["edge"][0], edge_map, edge_ok, 5, True)
@@ -446,22 +530,22 @@ def _kernel_phase(frames, dev):
     unsorted = {"edge": cases["edge"][:3], "surf": cases["surf"][:3],
                 "edge 4x": (e_q, big[0], big[1]), "surf 4x": (s_q, big[2], big[3])}
     for label, (q, db, v, pairs, boxes) in k3_inputs.items():
-        ms = _time_ms(lambda: kc.knn_sparse(q, db, v, k=5, radius=RADIUS, q_sorted=True,
-                                            db_sorted=True))
         plain_ms = _time_ms(lambda: kc.knn_sparse_plain(q, db, v, k=5, radius=RADIUS, q_tile=qt,
                                                         db_tile=dt, q_sorted=True,
                                                         db_sorted=True), reps=5, warmup=1)
         sort_ms = _time_ms(lambda: (knn_plain.morton_sort(q), knn_plain.morton_sort(db, v)))
         prob = knn_plain.sparse_prepare(q, db, v, qt, dt, q_sorted=True, db_sorted=True)
         search_ms = _time_ms(lambda: kc.sparse_search_cuda(prob, 5, RADIUS, dt))
-        note("K3", label, q.shape[0], db.shape[0], 5, ms, plain_ms, pairs, boxes,
+        note("K3", label, q.shape[0], db.shape[0], 5,
+             lambda: kc.knn_sparse(q, db, v, k=5, radius=RADIUS, q_sorted=True, db_sorted=True),
+             plain_ms, pairs, boxes,
              skipped=skip[label], sort_ms=sort_ms, search_ms=search_ms)
         if label.endswith("4x"):
             uq, udb, uv = unsorted[label]
             note("K2", label, q.shape[0], db.shape[0], 5,
-                 _time_ms(lambda: kc.knn_exact(uq, udb, uv, k=5)), None)
+                 lambda: kc.knn_exact(uq, udb, uv, k=5), None)
             note("K1", label, q.shape[0], db.shape[0], 5,
-                 _time_ms(lambda: kc.knn_grouped(uq, udb, uv, k=5)), None)
+                 lambda: kc.knn_grouped(uq, udb, uv, k=5), None)
     for label in ("edge", "surf", "edge 4x", "surf 4x"):
         k3 = shapes["K3"][label]
         print(f"  crossover {label}: K1 {shapes['K1'][label]['ms']:.4f} ms, K2 "
@@ -484,7 +568,8 @@ def _kernel_phase(frames, dev):
                     source="vil_fusion_tpu_torch/csrc/knn.cu", replaces=replaces,
                     max_abs_err=errs[kname], shape=f"{main} {s['shape']}", ms=s["ms"],
                     plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-                    library_ms=None, shapes=shapes[kname])
+                    library_ms=None, launches_per_call=s["launches_per_call"],
+                    shapes=shapes[kname])
 
     pk = "vil_fusion_tpu/ops/pallas/knn_pallas.py"
     records = {

@@ -47,18 +47,23 @@ def _margin_rows(d, k):
     (192, 115200, 3, False),  # depth association
     (300, 1000, 8, False),
     (77, 130, 3, True),
-])
+] + [(nq, nd, k, grouped)  # few and ragged queries, ragged databases, one chunk to the cap
+     for nq in (1, 127, 129, 192, 513) for nd in (130, 4097, 115200) for k in (1, 3, 8)
+     for grouped in (True, False)])
 def test_cuda_kernel_matches_plain(cuda_device, nq, nd, k, grouped, form):
     """Kernel and plain version round identically in both distance forms:
     distances equal within 1e-6 of the largest distance, indices identical
     on rows whose k+1 nearest are 1e-6 relative apart, index 0 where no
     neighbour; one launch counted per call (and as a difference-form launch
-    where it is one)."""
+    where it is one), which enqueues as many kernels as the plan says (the
+    library counts them where it launches them)."""
     q, db, v = (torch.from_numpy(x).to(cuda_device) for x in _data(nq, nd, nq + nd))
     kern = kc.knn_grouped if grouped else kc.knn_exact
     plain = kc.knn_grouped_plain if grouped else kc.knn_exact_plain
-    before, before_diff = kern.launches, kern.launches_diff
+    before, before_diff, before_kernels = kern.launches, kern.launches_diff, kc.kernels_enqueued()
     d, i = kern(q, db, v, k=k, form=form)
+    sm_count = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert kc.kernels_enqueued() - before_kernels == 1 + kc.plan(nq, nd, k, sm_count, grouped).merge
     assert kern.launches == before + 1
     assert kern.launches_diff == before_diff + (form == "diff")
     assert kern.last_call == (nq, nd, k)
@@ -72,6 +77,49 @@ def test_cuda_kernel_matches_plain(cuda_device, nq, nd, k, grouped, form):
     assert rows.float().mean().item() > 0.95
     assert torch.equal(i[rows], i_p[rows])
     assert (i[~torch.isfinite(d)] == 0).all()
+
+
+@pytest.mark.parametrize("form", ["expanded", "diff"])
+@pytest.mark.parametrize("nq,nd,k,grouped", [
+    (513, 4097, 5, True), (513, 4097, 5, False), (192, 40000, 3, False), (2048, 16384, 1, False),
+    (129, 130, 8, True),
+])
+def test_cuda_kernel_ties_to_lower_index(cuda_device, nq, nd, k, grouped, form):
+    """Duplicated database points, queries on database points and a coarse
+    coordinate grid give exact ties: the kernel's distances equal the plain
+    version's bit for bit on every row, and its indices are the (distance,
+    index)-ordered ones (of the groups' top-2 for K1), computed here from the
+    plain version's distance matrix with stable sorts."""
+    from vil_fusion_tpu_torch.ops import knn as knn_plain
+
+    rng = np.random.default_rng(nq + nd)
+    db = np.round(rng.uniform(-20, 20, (nd, 3)) * 2) / 2
+    db[rng.integers(0, nd, nd // 5)] = db[rng.integers(0, nd, nd // 5)]
+    q = np.round(rng.uniform(-20, 20, (nq, 3)) * 2) / 2
+    q[: nq // 5] = db[rng.integers(0, nd, nq // 5)]
+    q, db, v = (torch.from_numpy(x).to(cuda_device)
+                for x in (q.astype(np.float32), db.astype(np.float32), rng.random(nd) < 0.85))
+    kern = kc.knn_grouped if grouped else kc.knn_exact
+    plain = kc.knn_grouped_plain if grouped else kc.knn_exact_plain
+    d, i = kern(q, db, v, k=k, form=form)
+    d_p, _ = plain(q, db, v, k=k, form=form)
+    assert torch.equal(d, d_p)
+    dist = knn_plain._dist2(q, knn_plain._sqnorm(q), db, knn_plain._db_norms(db, v), form)
+    cols = torch.arange(nd, device=cuda_device).expand(nq, nd)
+    if grouped:
+        pad = (-nd) % 128
+        dist = torch.nn.functional.pad(dist, (0, pad), value=float("inf")).view(nq, -1, 128)
+        g_d, g_a = torch.sort(dist, dim=2, stable=True)
+        dist = g_d[:, :, :2].reshape(nq, -1)
+        cols = (g_a[:, :, :2] + 128 * torch.arange(dist.shape[1] // 2,
+                                                   device=cuda_device)[None, :, None]).reshape(nq, -1)
+    kk = min(k, dist.shape[1])
+    d_r, order = torch.sort(dist, dim=1, stable=True)
+    i_r = torch.gather(cols, 1, order)[:, :kk]
+    i_r = torch.where(torch.isfinite(d_r[:, :kk]), i_r, torch.zeros_like(i_r))
+    assert torch.equal(d[:, :kk], d_r[:, :kk])
+    assert torch.equal(i[:, :kk].long(), i_r)
+    assert (d[:, 0] == 0).any() and (k == 1 or (d[:, 1:] == d[:, :-1]).any())
 
 
 def _clustered(nq, nd, seed, n_centers=40):

@@ -9,8 +9,9 @@ the host clock (no profiler: starting one costs seconds), then traces the
 next `--frames` frames with torch.profiler (CPU + CUDA activities) and
 prints: wall time per frame without the profiler, device kernel time per
 frame and its share of that wall time (the device's busy share), kernel
-launches per frame, and the ten kernels with the most device time. Needs
-one NVIDIA card; prints the card's name and power limit first.
+launches per frame, the kNN kernels' share of the device time, and the ten kernels with
+the most device time. Needs one NVIDIA card; prints the card's name and
+power limit first.
 """
 from __future__ import annotations
 
@@ -101,6 +102,14 @@ def main() -> int:
           f"device kernels {dev_us / 1e3 / n:.3f} ms/frame over the next {n} = "
           f"{dev_us / 10 / n / wall_ms:.2f}% busy; {launches / n:.0f} kernel launches/frame",
           flush=True)
+    knn = [e for e in kernels if "knn_" in e.key]
+    knn_us = sum(e.self_device_time_total for e in knn)
+    print(f"  kNN kernels (csrc/knn.cu): {knn_us / 1e3 / n:.3f} ms/frame = "
+          f"{100.0 * knn_us / max(dev_us, 1e-9):.2f}% of the device's kernel time in "
+          f"{sum(e.count for e in knn) / n:.1f} launches/frame", flush=True)
+    for e in sorted(knn, key=lambda e: -e.self_device_time_total):
+        print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms/frame  {e.count / n:5.1f} "
+              f"calls/frame  {e.key[:80]}", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / args.frames:8.3f} ms/frame  "
               f"{e.count / args.frames:7.1f} calls/frame  {e.key[:90]}", flush=True)

@@ -21,6 +21,7 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -28,6 +29,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -38,8 +40,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_K = 8
-_THREADS = 128  # queries per block and columns per group (csrc/knn.cu)
-_BLOCKS_PER_SM = 8  # database split target: enough blocks to fill the card
+_THREADS = 128  # threads per block and columns per group (csrc/knn.cu)
+
+# The split of the database over gridDim.y: blocks of 128 threads (one query
+# each) an SM that it aims at, for K1 / K2 (`plan`, tuned on an H100 with
+# tools/knn_kernel_bench.py --sweep) and for K3's tiles
+_BLOCKS_PER_SM = 8
 
 # K3's tiles on this card: a block of 128 Morton-consecutive queries against
 # 128-column database tiles (the reference's 512 x 1024 were sized for VMEM;
@@ -58,7 +64,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile csrc/knn.cu (once per source/flag content) and load it.
 
     verbose=True adds `-Xptxas -v` and prints nvcc's report (registers,
-    shared memory, spills per kernel). Returns the loaded library."""
+    shared memory, spills) for the instances of the main paths (k = 1, 3,
+    5). Returns the loaded library."""
     global _lib
     if _lib is not None and not verbose:
         return _lib
@@ -88,40 +95,79 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
                    + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
+    lib.vil_knn_kernels_enqueued.argtypes = []
+    lib.vil_knn_kernels_enqueued.restype = ctypes.c_longlong
     _lib = lib
     return lib
 
 
-def _ptxas_summary(log: str, ks=(1, 5)) -> str:
-    """Registers / spills / shared memory of the kernel instances the LiDAR
-    path uses (k in `ks`), from nvcc's -Xptxas -v report."""
-    out, label = [], None
+_ENTRY = re.compile(r"Compiling entry function '\w*?(knn_(?:sparse_partial|dense|merge)_kernel)"
+                    r"ILi(\d)E(?:Lb([01])ELb([01])E)?")
+
+
+def _ptxas_summary(log: str, ks=(1, 3, 5)) -> str:
+    """Registers / spills / shared memory of the kernel instances with k in
+    `ks`, from nvcc's -Xptxas -v report, and the count of instances that
+    spill among all of them."""
+    out, label, spilling = [], None, 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(knn_(?:sparse_partial|partial|merge)"
-                      r"_kernel)ILi(\d)E(?:Lb([01])ELb([01])E)?", line)
+        m = _ENTRY.search(line)
         if m:
-            kind = ({"1": ", grouped", "0": ", exact"}.get(m.group(3), "")
-                    + {"1": ", diff", "0": ", expanded"}.get(m.group(4), ""))
+            kind = ""
+            if m.group(3):
+                kind = ((", grouped" if m.group(3) == "1" else ", exact")
+                        + (", diff" if m.group(4) == "1" else ", expanded"))
             label = f"{m.group(1)}<k={m.group(2)}{kind}>" if int(m.group(2)) in ks else None
-        elif label and ("Used" in line or "spill" in line):
+        elif "spill" in line:
+            spilling += "0 bytes spill stores, 0 bytes spill loads" not in line
+            if label:
+                out.append(f"  {label}: {line.split(':', 1)[-1].strip()}")
+        elif label and "Used" in line:
             out.append(f"  {label}: {line.split(':', 1)[-1].strip()}")
+    out.append(f"  instances that spill, all k: {spilling}")
     return "\n".join(out)
 
 
-def _n_split(n_qb: int, parts: int, device) -> int:
-    """Blocks along gridDim.y so that (query blocks x splits) fills the
-    card, at most one per part (128-column group or database tile)."""
-    target = _BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
-    return min(parts, max(1, -(-target // n_qb)))
+class Plan(NamedTuple):
+    """How one K1 / K2 call is launched: a block of 128 threads, one query
+    each, for every (128 queries, chunk)."""
+    n_split: int  # chunks of the database, one block row each (gridDim.y)
+    chunk: int  # columns a chunk, whole 128-column groups
+    merge: bool  # a second kernel merges the chunks' lists (n_split > 1)
 
 
-def _split(nq: int, nd: int, device) -> tuple[int, int]:
-    """(n_split, chunk): database chunks of whole 128-column groups, enough
-    of them that (query blocks x chunks) fills the card."""
+def min_chunk_groups(k: int, grouped: bool) -> int:
+    """Least 128-column groups a chunk: every chunk fills its list anew, K1
+    with two candidates a group, K2 within its first group, and until then
+    every column goes through the update. One group more than that."""
+    return (-(-k // 2) if grouped else 1) + 1
+
+
+def plan(nq: int, nd: int, k: int, sm_count: int, grouped: bool = False) -> Plan:
+    """The launch plan from the shape, the kernel and the card's SM count
+    alone.
+
+    As many chunks as `_BLOCKS_PER_SM` blocks an SM ask for, none shorter
+    than `min_chunk_groups` and none empty. A problem too small to split
+    runs as one kernel that writes the result itself."""
     groups = max(1, -(-nd // _THREADS))
-    n_split = _n_split(-(-nq // _THREADS), groups, device)
-    chunk_groups = -(-groups // n_split)
-    return -(-groups // chunk_groups), chunk_groups * _THREADS
+    want = min(-(-_BLOCKS_PER_SM * sm_count // max(1, -(-nq // _THREADS))),
+               max(1, groups // min_chunk_groups(k, grouped)))
+    chunk_groups = -(-groups // want)
+    n_split = -(-groups // chunk_groups)
+    return Plan(n_split, chunk_groups * _THREADS, n_split > 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernels_enqueued() -> int:
+    """Kernels that the library has enqueued since it was loaded, counted in
+    csrc/knn.cu beside each launch: the difference around one wrapper call
+    is the number of kernels that call cost."""
+    return build().vil_knn_kernels_enqueued()
 
 
 def _check(queries, database, db_valid, k: int):
@@ -154,19 +200,23 @@ def _launch(queries, database, db_valid, k: int, grouped: bool, form: str):
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_d, out_i
-    n_split, chunk = _split(nq, nd, dev)
-    part_d = torch.empty((nq, n_split, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nq, n_split, k), dtype=torch.int32, device=dev)
+    how = plan(nq, nd, k, _sm_count(dev), grouped)
+    part_d = part_i = None  # the chunks' lists, where a merge reads them
+    if how.merge:
+        part_d = torch.empty((nq, how.n_split, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((nq, how.n_split, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vil_knn_launch(
-            queries.data_ptr(), database.data_ptr(), db_valid.data_ptr(),
-            nq, nd, k, int(grouped), int(form == "diff"), chunk, n_split,
-            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), stream)
+            queries.data_ptr(), database.data_ptr(), db_valid.data_ptr(), nq, nd, k,
+            int(grouped), int(form == "diff"), how.chunk, how.n_split,
+            part_d.data_ptr() if how.merge else None,
+            part_i.data_ptr() if how.merge else None,
+            out_d.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vil_knn_launch failed with cudaError {err} "
-                           f"(nq={nq}, nd={nd}, k={k}, grouped={grouped}, form={form})")
+                           f"(nq={nq}, nd={nd}, k={k}, grouped={grouped}, form={form}, "
+                           f"plan={tuple(how)})")
     return out_d, out_i
 
 
@@ -214,19 +264,19 @@ def sparse_search_cuda(prob: knn_plain.SparseProblem, k: int, radius: float, db_
     lib = build()
     dev = prob.q.device
     nqp, ndp = prob.q.shape[0], prob.db.shape[0]
-    n_split = _n_split(nqp // _THREADS, ndp // db_tile, dev)
+    n_split = min(ndp // db_tile,
+                  max(1, -(-_BLOCKS_PER_SM * _sm_count(dev) // (nqp // _THREADS))))
     out_d = torch.empty((nqp, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nqp, k), dtype=torch.int32, device=dev)
     part_d = torch.empty((nqp, n_split, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((nqp, n_split, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vil_knn_sparse_launch(
             prob.q.data_ptr(), prob.db.data_ptr(), prob.db_valid.data_ptr(),
             prob.q_lo.data_ptr(), prob.q_hi.data_ptr(), prob.d_lo.data_ptr(),
             prob.d_hi.data_ptr(), nqp, ndp, k, db_tile, n_split, float(radius) ** 2,
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vil_knn_sparse_launch failed with cudaError {err} "
                            f"(nq={nqp}, nd={ndp}, k={k}, db_tile={db_tile})")
