@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -355,6 +356,36 @@ def _kernel_inputs(frames, dev, big=True):
                                  origin=origin, gen=gen, rnd=rnd, rnd_valid=rnd_valid)
 
 
+def _k3_inputs(inp):
+    """K3's inputs of the kernels phase from `_kernel_inputs(..., big=True)`:
+    {label: (queries, database, validity, presorted)}. The edge and surf
+    queries against the 4x and the default-capacity maps, each side
+    Morton-sorted as scan_to_map sorts them; and a clustered random cloud
+    (40 centres, 2 m spread, 3000 x 20,000) that the wrapper sorts itself.
+    Draws from inp.gen."""
+    import torch
+
+    from vil_fusion_tpu_torch.ops import knn as knn_plain
+
+    def presorted(q, db, v):
+        qp, dp = knn_plain.morton_sort(q), knn_plain.morton_sort(db, v)
+        return q[qp].contiguous(), db[dp].contiguous(), v[dp].contiguous(), True
+
+    (e_q, edge_map, edge_ok), (s_q, surf_map, surf_ok) = (inp.cases[n][:3] for n in ("edge", "surf"))
+    out = {"edge 4x": presorted(inp.e_q, inp.big[0], inp.big[1]),
+           "surf 4x": presorted(inp.s_q, inp.big[2], inp.big[3]),
+           "edge": presorted(e_q, edge_map, edge_ok),
+           "surf": presorted(s_q, surf_map, surf_ok)}
+    gen, dev = inp.gen, inp.e_q.device
+    centers = gen.uniform(-40, 40, (40, 3))
+    cl_db = torch.as_tensor(centers[gen.integers(0, 40, 20000)] + gen.normal(0, 2.0, (20000, 3)),
+                            dtype=torch.float32, device=dev)
+    cl_q = torch.as_tensor(centers[gen.integers(0, 40, 3000)] + gen.normal(0, 2.0, (3000, 3)),
+                           dtype=torch.float32, device=dev)
+    out["clustered random"] = (cl_q, cl_db, inp.rnd_valid(20000), False)
+    return out
+
+
 def _kernel_phase(frames, dev):
     """Phase 3. Returns {kernel name: record} without launch counts."""
     import torch
@@ -373,26 +404,33 @@ def _kernel_phase(frames, dev):
     errs = {}
     shapes = {}  # kernel name -> {shape label: dict(ms, plain_ms, bound_ms, bound_by)}
 
-    def note(kname, label, nq, nd, k, call, plain_ms, pairs=None, extra_bytes=0, **more):
+    def note(kname, label, nq, nd, k, call, plain_ms, pairs=None, extra_bytes=0, bound=None,
+             shape=None, **more):
         """Time `call` (one wrapper call at this shape) and count the kernels
-        it enqueues, read from the library's own counter around one call: K3
-        its search and the merge, K1 / K2 the merge only where the plan
-        splits the database."""
-        b_ms, b_by = _knn_bound(nq, nd, k, pairs, extra_bytes)
+        it enqueues, read from the library's own counter around one call and
+        held against the plan: K3 its box kernel and search (a presorted
+        call), K1 / K2 the merge only where the plan splits the database, the
+        Morton keys two. `bound` overrides the kNN bound."""
+        b_ms, b_by = bound or _knn_bound(nq, nd, k, pairs, extra_bytes)
         ms = _time_ms(call)
         before = kc.kernels_enqueued()
         call()
         per_call = kc.kernels_enqueued() - before
-        planned = 2 if kname == "K3" else 1 + kc.plan(nq, nd, k, sm_count,
-                                                      kname.startswith("K1")).merge
+        if kname == "K3":
+            planned = kc.sparse_plan(nq, nd, sm_count).kernels
+        elif kname == "Morton keys":
+            planned = 2
+        else:
+            planned = 1 + kc.plan(nq, nd, k, sm_count, kname.startswith("K1")).merge
         if per_call != planned:
             raise AssertionError(f"{kname} {label} {nq}x{nd} k={k}: the call enqueued "
                                  f"{per_call} kernels, its plan says {planned}")
+        shape = shape or f"{nq}x{nd} k={k}"
         shapes.setdefault(kname, {})[label] = dict(
-            shape=f"{nq}x{nd} k={k}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             launches_per_call=per_call, **more)
         plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
-        print(f"  {kname} {label} {nq}x{nd} k={k}: kernel {ms:.4f} ms in {per_call} launch(es), "
+        print(f"  {kname} {label} {shape}: kernel {ms:.4f} ms in {per_call} launch(es), "
               f"plain {plain_txt}, bound {b_ms:.5f} ms by {b_by} (CUDA-event medians)", flush=True)
 
     # --- K1 / K2, both distance forms, against their plain versions ---
@@ -483,10 +521,6 @@ def _kernel_phase(frames, dev):
     skip = {}
 
     def k3_case(label, q, db, v, k, presort):
-        if presort:
-            qp = knn_plain.morton_sort(q)
-            dp = knn_plain.morton_sort(db, v)
-            q, db, v = q[qp].contiguous(), db[dp].contiguous(), v[dp].contiguous()
         kw = dict(radius=RADIUS, q_sorted=presort, db_sorted=presort)
         d_k, i_k = kc.knn_sparse(q, db, v, k=k, **kw)
         d_p, i_p = kc.knn_sparse_plain(q, db, v, k=k, q_tile=qt, db_tile=dt, **kw)
@@ -507,23 +541,21 @@ def _kernel_phase(frames, dev):
         prob = knn_plain.sparse_prepare(q, db, v, qt, dt, q_sorted=presort, db_sorted=presort)
         near = knn_plain.sparse_near(prob.q_lo, prob.q_hi, prob.d_lo, prob.d_hi, RADIUS)
         skip[label] = 1.0 - near.float().mean().item()
-        print(f"  {name}: {skip[label]:.4f} of {near.numel()} blocks ({qt} x {dt}) skipped",
-              flush=True)
+        # the near-tile lists that K3's blocks walk, and what 32-query tiles
+        # (a warp's, tighter boxes) would give
+        q32 = prob.q.view(-1, 32, 3)
+        near32 = knn_plain.sparse_near(q32.amin(1), q32.amax(1), prob.d_lo, prob.d_hi, RADIUS)
+        lists = [n.sum(1).float() for n in (near, near32)]
+        print(f"  {name}: {skip[label]:.4f} of {near.numel()} blocks ({qt} x {dt}) skipped; near "
+              f"tiles a query tile mean {lists[0].mean():.2f} max {lists[0].max():.0f} (32-query "
+              f"tiles: mean {lists[1].mean():.2f} max {lists[1].max():.0f})", flush=True)
         pairs = int(near.sum().item()) * qt * dt
         boxes = (near.shape[0] + near.shape[1]) * 24
         return q, db, v, pairs, boxes
 
-    k3_inputs = {}
-    k3_inputs["edge 4x"] = k3_case("edge 4x", e_q, big[0], big[1], 5, True)
-    k3_inputs["surf 4x"] = k3_case("surf 4x", s_q, big[2], big[3], 5, True)
-    k3_inputs["edge"] = k3_case("edge", cases["edge"][0], edge_map, edge_ok, 5, True)
-    k3_inputs["surf"] = k3_case("surf", cases["surf"][0], surf_map, surf_ok, 5, True)
-    centers = gen.uniform(-40, 40, (40, 3))
-    cl_db = torch.as_tensor(centers[gen.integers(0, 40, 20000)] + gen.normal(0, 2.0, (20000, 3)),
-                            dtype=torch.float32, device=dev)
-    cl_q = torch.as_tensor(centers[gen.integers(0, 40, 3000)] + gen.normal(0, 2.0, (3000, 3)),
-                           dtype=torch.float32, device=dev)
-    k3_case("clustered random", cl_q, cl_db, rnd_valid(20000), 5, False)
+    k3_inputs = {label: k3_case(label, *args, 5, presort)
+                 for label, (*args, presort) in _k3_inputs(inp).items()}
+    del k3_inputs["clustered random"]
 
     # --- the dense / sparse crossover: K1, K2, K3 on the same presorted inputs
     #     (K1 only on the unsorted ones: it is never chosen on sorted buffers) ---
@@ -533,13 +565,12 @@ def _kernel_phase(frames, dev):
         plain_ms = _time_ms(lambda: kc.knn_sparse_plain(q, db, v, k=5, radius=RADIUS, q_tile=qt,
                                                         db_tile=dt, q_sorted=True,
                                                         db_sorted=True), reps=5, warmup=1)
-        sort_ms = _time_ms(lambda: (knn_plain.morton_sort(q), knn_plain.morton_sort(db, v)))
-        prob = knn_plain.sparse_prepare(q, db, v, qt, dt, q_sorted=True, db_sorted=True)
-        search_ms = _time_ms(lambda: kc.sparse_search_cuda(prob, 5, RADIUS, dt))
+        sort_ms = _time_ms(lambda: (kc.morton_sort(q), kc.morton_sort(db, v)))
+        plain_sort_ms = _time_ms(lambda: (knn_plain.morton_sort(q), knn_plain.morton_sort(db, v)))
         note("K3", label, q.shape[0], db.shape[0], 5,
              lambda: kc.knn_sparse(q, db, v, k=5, radius=RADIUS, q_sorted=True, db_sorted=True),
              plain_ms, pairs, boxes,
-             skipped=skip[label], sort_ms=sort_ms, search_ms=search_ms)
+             skipped=skip[label], sort_ms=sort_ms, plain_sort_ms=plain_sort_ms)
         if label.endswith("4x"):
             uq, udb, uv = unsorted[label]
             note("K2", label, q.shape[0], db.shape[0], 5,
@@ -549,10 +580,57 @@ def _kernel_phase(frames, dev):
     for label in ("edge", "surf", "edge 4x", "surf 4x"):
         k3 = shapes["K3"][label]
         print(f"  crossover {label}: K1 {shapes['K1'][label]['ms']:.4f} ms, K2 "
-              f"{shapes['K2'][label]['ms']:.4f} ms, K3 {k3['ms']:.4f} ms (its two kernels alone "
-              f"{k3['search_ms']:.4f} ms; boxes, padding and the finishing step are tensor "
-              f"code) + Morton sorts of both sides {k3['sort_ms']:.4f} ms (skipped "
+              f"{shapes['K2'][label]['ms']:.4f} ms, K3 {k3['ms']:.4f} ms (presorted, "
+              f"{k3['launches_per_call']} kernels) + Morton sorts of both sides "
+              f"{k3['sort_ms']:.4f} ms (plain tensor code {k3['plain_sort_ms']:.4f} ms; skipped "
               f"{k3['skipped']:.4f})", flush=True)
+
+    # --- a presorted K3 call enqueues csrc/knn.cu's kernels and nothing else,
+    #     as torch.profiler sees the device ---
+    from torch.profiler import ProfilerActivity, profile
+
+    for label in ("edge 4x", "surf 4x"):
+        q, db, v = k3_inputs[label][:3]
+        kc.knn_sparse(q, db, v, k=5, radius=RADIUS, q_sorted=True, db_sorted=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kc.knn_sparse(q, db, v, k=5, radius=RADIUS, q_sorted=True, db_sorted=True)
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        outside = [n for n in seen if "knn_sparse_kernel" not in n
+                   and "knn_sparse_box_kernel" not in n]
+        planned = kc.sparse_plan(q.shape[0], db.shape[0], sm_count).kernels
+        if outside or sum(seen.values()) != planned:
+            raise AssertionError(f"K3 {label}: a presorted call ran {seen} on the device; its "
+                                 f"plan says {planned} kernels of csrc/knn.cu")
+        print(f"  K3 {label}: torch.profiler sees {sum(seen.values())} kernels of a presorted "
+              f"call, all in csrc/knn.cu "
+              f"({', '.join(re.sub(r'^void |.anonymous namespace.::|[(].*$', '', n) for n in seen)})",
+              flush=True)
+
+    # --- the Morton-key kernels against the plain keys, at the sides the
+    #     sparse path sorts ---
+    merr = 0
+    for label, (pts, ok) in (("surf 4x map", big[2:4]), ("edge 4x map", big[0:2]),
+                             ("surf queries", (s_q, None)), ("edge queries", (e_q, None))):
+        keys = kc.morton_keys(pts, ok)
+        keys_p = knn_plain.morton_keys(pts, ok)
+        same_perm = torch.equal(kc.morton_sort(pts, ok), knn_plain.morton_sort(pts, ok))
+        torch.cuda.synchronize()
+        err = (keys.long() - keys_p.long()).abs().max().item()
+        merr = max(merr, err)
+        if err or not same_perm:
+            raise AssertionError(f"Morton keys {label}: max |key - plain key| {err}, same "
+                                 f"permutation {same_perm}")
+        n = pts.shape[0]
+        moved = n * (12 + 4) + (0 if ok is None else n)  # points and keys once, validity
+        print(f"  Morton keys {label} ({n} points): kernel == plain on every key, same "
+              f"permutation", flush=True)
+        note("Morton keys", label, n, n, 1, lambda: kc.morton_keys(pts, ok),
+             _time_ms(lambda: knn_plain.morton_keys(pts, ok)),
+             bound=(moved / PEAK_BYTES_PER_S * 1e3, "bytes"), shape=f"{n} points")
+    errs["Morton keys"] = merr
 
     # --- hash kNN (plain tensor code, no kernel) against K1 at the association shapes ---
     hash_ms = {}
@@ -578,17 +656,19 @@ def _kernel_phase(frames, dev):
         "K3": record("K3", "knn_sparse", f"{pk}:290", "surf 4x"),
         "K1 diff": record("K1 diff", "knn_grouped(form='diff')", f"{pk}:45", "surf"),
         "K2 diff": record("K2 diff", "knn_exact(form='diff')", f"{pk}:45", "icp"),
+        "Morton keys": record("Morton keys", "morton_keys", f"{pk}:379", "surf 4x map"),
     }
     records["K1"]["hash_knn_ms"] = hash_ms
     return records
 
 
 def _counts(kc):
-    """Launch counts of the five kernels since the last _reset."""
+    """Launch counts of the six kernels since the last _reset."""
     return {"K1": kc.knn_grouped.launches - kc.knn_grouped.launches_diff,
             "K2": kc.knn_exact.launches - kc.knn_exact.launches_diff,
             "K3": kc.knn_sparse.launches,
-            "K1 diff": kc.knn_grouped.launches_diff, "K2 diff": kc.knn_exact.launches_diff}
+            "K1 diff": kc.knn_grouped.launches_diff, "K2 diff": kc.knn_exact.launches_diff,
+            "Morton keys": kc.morton_keys.launches}
 
 
 def _reset(kc):
@@ -596,6 +676,7 @@ def _reset(kc):
         fn.launches = 0
         fn.launches_diff = 0
     kc.knn_sparse.launches = 0
+    kc.morton_keys.launches = 0
 
 
 def _on_card(states, dev):
@@ -823,7 +904,8 @@ def main() -> int:
     counts, fps, pipe = _lidar_path(
         "sparse", frames[:n], WARMUP_FRAMES, dev, card,
         overrides=dict(sparse_knn=True, approx_knn=False, edge_map_cap=MAP_CAPS_4X[0],
-                       surf_map_cap=MAP_CAPS_4X[1]), need={"K3": 1, "K2": 0}, prewarm=True)
+                       surf_map_cap=MAP_CAPS_4X[1]), need={"K3": 1, "Morton keys": 4, "K2": 0},
+        prewarm=True)
     _pose_errors("sparse", pipe.outputs.lidar_p, pipe.outputs.lidar_q, frames[:n],
                  END_ERR_BOUND_M)
     if counts["K1"] or pipe.lidar_state.surf_map.shape[0] != MAP_CAPS_4X[1]:
@@ -860,7 +942,8 @@ def main() -> int:
     add("front end", _front_end_path(frames[:n], images, dev, card))
 
     on_path = {"K1": ("dense", "front end"), "K2": ("dense", "sparse", "front end"),
-               "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",)}
+               "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",),
+               "Morton keys": ("sparse",)}
     for kname, rec in records.items():
         rec["launches_by_path"] = launches[kname]
         rec["launches"] = sum(launches[kname].values())

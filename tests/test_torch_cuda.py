@@ -1,5 +1,5 @@
 """The port on a CUDA card: the K1/K2/K3 kernels (both distance forms of K1
-and K2) against their plain versions at the main paths' shapes, the
+and K2) and the Morton-key kernels against their plain versions at the main paths' shapes, the
 dispatcher's routing on the card, and the LiDAR-only slice and the vil
 front end on the card against the same code on the CPU.
 
@@ -136,12 +136,15 @@ def _clustered(nq, nd, seed, n_centers=40):
     (3000, 20000, 5, 128, False),  # ragged sizes, the wrapper sorts
     (300, 3000, 3, 256, False),  # wider database tile
     (130, 2000, 8, 128, False),
-])
+] + [(nq, 20001, k, 128, presort)  # few and ragged queries, a database of no whole tiles
+     for nq in (1, 127, 129, 3000) for k in (1, 4, 8) for presort in (True, False)])
 def test_cuda_sparse_kernel_matches_plain(cuda_device, nq, nd, k, db_tile, presort):
     """K3 against its plain version with the same tiles: distances equal
     bit for bit on every row (same skip rule, same rounding), indices equal
     on unambiguous rows, index 0 where missing; inside the radius equal to
-    the plain exact search in the difference form; one launch counted."""
+    the plain exact search in the difference form; one launch counted, and
+    the kernels the call enqueues are those of the plan (two Morton-key
+    kernels a side the wrapper sorts)."""
     from vil_fusion_tpu_torch.ops import knn as knn_plain
 
     q, db, v = (torch.from_numpy(x).to(cuda_device) for x in _clustered(nq, nd, nq + nd))
@@ -149,9 +152,12 @@ def test_cuda_sparse_kernel_matches_plain(cuda_device, nq, nd, k, db_tile, preso
         qp, dp = knn_plain.morton_sort(q), knn_plain.morton_sort(db, v)
         q, db, v = q[qp].contiguous(), db[dp].contiguous(), v[dp].contiguous()
     kw = dict(radius=3.0, db_tile=db_tile, q_sorted=presort, db_sorted=presort)
-    before = kc.knn_sparse.launches
+    before, before_kernels = kc.knn_sparse.launches, kc.kernels_enqueued()
     d, i = kc.knn_sparse(q, db, v, k=k, **kw)
     assert kc.knn_sparse.launches == before + 1 and kc.knn_sparse.last_call == (nq, nd, k)
+    sm_count = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert kc.kernels_enqueued() - before_kernels \
+        == kc.sparse_plan(nq, nd, sm_count, db_tile).kernels + (0 if presort else 4)
     d_p, i_p = kc.knn_sparse_plain(q, db, v, k=k, q_tile=128, **kw)
     d_m, _ = kc.knn_sparse_plain(q, db, v, k=k + 1, q_tile=128, **kw)
     torch.cuda.synchronize()
@@ -166,6 +172,85 @@ def test_cuda_sparse_kernel_matches_plain(cuda_device, nq, nd, k, db_tile, preso
     assert torch.equal(d[gate], d_x[gate])
     clear = gate & _margin_rows(d_x1, k)
     assert torch.equal(i[clear], i_x[clear])
+
+
+def _tied(nq, nd, seed):
+    """_clustered on a 0.25 m grid with duplicated database points and
+    queries on database points: exact ties."""
+    q, db, v = _clustered(nq, nd, seed)
+    rng = np.random.default_rng(seed + 1)
+    db = np.round(db * 4) / 4
+    db[rng.integers(0, nd, nd // 5)] = db[rng.integers(0, nd, nd // 5)]
+    q = np.round(q * 4) / 4
+    q[: nq // 4] = db[rng.integers(0, nd, nq // 4)]
+    return q.astype(np.float32), db.astype(np.float32), v
+
+
+@pytest.mark.parametrize("case,nq,nd,radius", [
+    ("tied", 1, 1000, 3.0), ("tied", 127, 1000, 3.0), ("tied", 129, 20001, 3.0),
+    ("tied", 3000, 20001, 3.0),
+    ("all invalid", 300, 5000, 3.0),
+    ("tied", 500, 6000, 0.0),  # radius 0
+    ("tied", 300, 6000, 1e4),  # every block near
+    ("clustered", 3000, 20000, 12.0),  # long near lists
+])
+@pytest.mark.parametrize("presort", [True, False])
+def test_cuda_sparse_rows_exact(cuda_device, case, nq, nd, radius, presort):
+    """K3 on every row, for k = 1..8: distances and indices equal bit for bit
+    to the plain search written with ties to the lower index
+    (tests/torch_sparse_reference.py, which orders a row by (distance,
+    index) as the kernels do), distances equal to the plain version's on
+    every row, and inside the radius equal to the plain exact search
+    (difference form). The plan splits these tiles over 1 to 20 blocks, so
+    the last block's merge of the split is held too."""
+    from torch_sparse_reference import lex_reference
+
+    data = _clustered(nq, nd, nq + nd) if case == "clustered" else _tied(nq, nd, nq + nd)
+    q, db, v = (torch.from_numpy(x).to(cuda_device) for x in data)
+    if case == "all invalid":
+        v = torch.zeros_like(v)
+    if presort:
+        qp, dp = kc.morton_sort(q), kc.morton_sort(db, v)
+        q, db, v = q[qp].contiguous(), db[dp].contiguous(), v[dp].contiguous()
+    kw = dict(q_sorted=presort, db_sorted=presort)
+    for k in range(1, 9):
+        d, i = kc.knn_sparse(q, db, v, k=k, radius=radius, **kw)
+        d_l, i_l = lex_reference(q, db, v, k, radius, presort, presort)
+        d_p, _ = kc.knn_sparse_plain(q, db, v, k=k, radius=radius, q_tile=128, db_tile=128, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(d, d_l) and torch.equal(i, i_l), f"k={k}"
+        assert torch.equal(d, d_p), f"k={k}"
+        if case == "all invalid":
+            assert torch.isinf(d).all() and (i == 0).all()
+            continue
+        d_x, _ = kc.knn_exact_plain(q, db, v, k=k, form="diff")
+        gate = d_x[:, -1] < radius ** 2
+        assert torch.equal(gate, d[:, -1] < radius ** 2) and torch.equal(d[gate], d_x[gate])
+
+
+@pytest.mark.parametrize("n,masked", [(1, True), (1000, True), (1000, False), (131072, True),
+                                      (65537, False), (5000, "none valid")])
+def test_cuda_morton_keys_match_plain(cuda_device, n, masked):
+    """The Morton-key kernels against the plain keys on the card, bit for
+    bit, and the sort built on them against the plain sort: the same
+    permutation; one launch counted, two kernels enqueued. A cell that is
+    not a power of two raises (the plain CUDA keys multiply by its
+    reciprocal, the kernel divides)."""
+    from vil_fusion_tpu_torch.ops import knn as knn_plain
+
+    rng = np.random.default_rng(n)
+    pts = torch.from_numpy(rng.uniform(-80, 2200, (n, 3)).astype(np.float32)).to(cuda_device)
+    valid = None
+    if masked:
+        valid = torch.from_numpy(rng.random(n) > (1.1 if masked == "none valid" else 0.3))
+        valid = valid.to(cuda_device)
+    before, before_kernels = kc.morton_keys.launches, kc.kernels_enqueued()
+    keys = kc.morton_keys(pts, valid)
+    assert kc.morton_keys.launches == before + 1 and kc.kernels_enqueued() - before_kernels == 2
+    assert torch.equal(keys, knn_plain.morton_keys(pts, valid))
+    assert torch.equal(kc.morton_sort(pts, valid), knn_plain.morton_sort(pts, valid))
+    with pytest.raises(ValueError, match="power of two"):
+        kc.morton_keys(pts, valid, cell=1.5)
 
 
 def test_cuda_dispatcher_routes(cuda_device):

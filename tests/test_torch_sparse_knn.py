@@ -5,7 +5,11 @@ The JAX side runs as its own tests run it on the CPU: `knn_pallas_sparse`
 and `knn_pallas(mxu=False)` in interpret mode at the small tiles of
 tests/test_pallas_knn.py. On the CPU the port runs its plain versions; the
 CUDA kernel is held against the same plain versions on a card by
-test_torch_cuda.py. Tolerances are stated in each test.
+test_torch_cuda.py. Also here, without a card: K3's launch plan, its
+every-row reference (torch_sparse_reference.py, ties to the lower index)
+against the plain version and the reference, and the Morton keys at their
+edge cases.
+Tolerances are stated in each test.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -224,3 +228,165 @@ def test_sparse_wrapper_passes_tiles_on_cpu():
     gate = d_big[:, -1] < 9.0
     assert torch.equal(d[gate], d_big[gate])  # tiles change what is skipped, not the answer
     assert torch.isfinite(d_big).sum() >= torch.isfinite(d).sum()
+
+
+# ---------------------------------------------------------------------------
+# K3's launch plan, its every-row reference (tests/torch_sparse_reference.py)
+# and the Morton keys of its key kernel
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+K3_SHAPES = [(8192, 131072), (2048, 65536), (8192, 32768), (2048, 16384),  # main
+             (3000, 20000), (1, 130), (127, 1), (129, 129), (100000, 1000),  # ragged
+             (20000, 65536), (0, 100), (5, 0), (0, 0), (1, 1)]  # many queries; degenerate
+
+
+@pytest.mark.parametrize("sm_count", [H100_SMS, 108])
+@pytest.mark.parametrize("nq,nd", K3_SHAPES)
+def test_sparse_plan(nq, nd, sm_count):
+    """`knn_cuda.sparse_plan` is a pure function of the shape and the SM
+    count: one block row a query tile of 128; as many blocks a tile as the
+    card has SMs for each tile, at least one, and no more than give every
+    group of 8 one database tile; the box kernel only where the database has
+    a tile; no kernel without a query. The scratch holds the boxes and,
+    with a split, the groups' lists."""
+    how = kc.sparse_plan(nq, nd, sm_count)
+    assert how == kc.sparse_plan(nq, nd, sm_count)
+    assert how.kernels == (0 if nq == 0 else 1 + (nd > 0))
+    if nq == 0:
+        return
+    assert how.blocks == -(-nq // 128) and how.db_tiles == -(-nd // 128)
+    assert how.n_split >= 1 and (how.n_split == 1 or how.blocks * how.n_split <= sm_count)
+    assert (how.n_split - 1) * kc.SPARSE_GROUPS < max(1, how.db_tiles)
+    assert how.n_split == max(1, min(sm_count // how.blocks, -(-how.db_tiles // 8)))
+    if sm_count == H100_SMS and (nq, nd) in K3_SHAPES[:4]:  # one wave of 128 blocks
+        assert how.blocks * how.n_split == 128
+    lists = how.blocks * how.n_split * 8 * 5 * 128 if how.n_split > 1 else 0
+    assert kc.sparse_scratch_bytes(how, 5) == 32 * how.db_tiles + 8 * lists
+    assert kc.sparse_plan(nq, nd, sm_count, db_tile=256).db_tiles == -(-nd // 256)
+
+
+def _tied_clustered(seed, n_centers, nd, nq, valid_gt=0.1):
+    """_clustered on a 0.25 m grid, with duplicated database points and
+    queries on database points: exact ties between neighbours."""
+    q, db, v = _clustered(seed, n_centers, nd, nq, valid_gt)
+    rng = np.random.default_rng(seed + 1)
+    db = np.round(db * 4) / 4
+    db[rng.integers(0, nd, nd // 5)] = db[rng.integers(0, nd, nd // 5)]
+    q = np.round(q * 4) / 4
+    q[: nq // 4] = db[rng.integers(0, nd, nq // 4)]
+    return q.astype(np.float32), db.astype(np.float32), v
+
+
+@pytest.mark.parametrize("seed,nq,nd,k,presort,radius", [
+    (31, 300, 3000, 5, False, 3.0),  # the wrapper sorts both sides
+    (32, 257, 2001, 8, True, 3.0),  # presorted, ragged on both sides
+    (33, 129, 700, 1, False, 3.0),
+    (34, 1, 130, 3, True, 3.0),  # one query, two database tiles
+    (35, 200, 1500, 4, False, 0.0),  # radius 0: only exact hits
+    (36, 200, 1500, 5, False, 60.0),  # every block near: one long list
+])
+def test_sparse_model_matches_plain_and_pallas(seed, nq, nd, k, presort, radius):
+    """K3's every-row reference (torch_sparse_reference.lex_reference: the
+    plain problem at 128 x 128 tiles, ties to the lower index, as the
+    kernels order a row) on clustered clouds with exact ties: equal to the
+    plain version (knn_sparse at 128 x 128 tiles) distance for distance on
+    every row and index for index wherever the k+1 nearest are distinct;
+    inside the radius equal to the reference's
+    knn_pallas_sparse(interpret=True) at the same tiles (rtol 1e-4 / atol
+    1e-3, the tolerance of the tests above; indices equal where the k+1
+    nearest are 1e-3 apart)."""
+    from torch_sparse_reference import lex_reference
+
+    q, db, v = _tied_clustered(seed, 10, nd, nq)
+    tq, tdb, tv = _t(q, db, v)
+    if presort:
+        qp, dp = tknn.morton_sort(tq), tknn.morton_sort(tdb, tv)
+        tq, tdb, tv = tq[qp].contiguous(), tdb[dp].contiguous(), tv[dp].contiguous()
+    kw = dict(q_sorted=presort, db_sorted=presort)
+    d_m, i_m = lex_reference(tq, tdb, tv, k, radius, presort, presort)
+    assert d_m.dtype == torch.float32 and i_m.dtype == torch.int32 and d_m.shape == (nq, k)
+    d_p, i_p = tknn.knn_sparse(tq, tdb, tv, k=k, radius=radius, q_tile=128, db_tile=128, **kw)
+    assert torch.equal(d_m, d_p)
+    d_more = tknn.knn_sparse(tq, tdb, tv, k=k + 1, radius=radius, q_tile=128, db_tile=128, **kw)[0]
+    distinct = ((d_more[:, 1:] > d_more[:, :-1]) | torch.isinf(d_more[:, 1:])).all(1)
+    assert torch.equal(i_m[distinct], i_p[distinct])
+    ties = (d_m[:, 1:] == d_m[:, :-1]) & torch.isfinite(d_m[:, 1:])
+    assert k == 1 or radius == 0.0 or ties.any()  # the cloud really has ties
+    assert (i_m[torch.isinf(d_m)] == 0).all() and tv[i_m[torch.isfinite(d_m)].long()].all()
+    d_j, i_j = kp.knn_pallas_sparse(jnp.asarray(tq.numpy()), jnp.asarray(tdb.numpy()),
+                                    jnp.asarray(tv.numpy()), k=k, radius=radius, q_tile=128,
+                                    db_tile=128, interpret=True, **kw)
+    d_j, i_j = np.asarray(d_j), np.asarray(i_j)
+    r2 = max(radius, 1e-3) ** 2
+    gate = d_j[:, -1] < r2
+    np.testing.assert_array_equal(d_m.numpy()[:, -1] < r2, gate)
+    np.testing.assert_allclose(d_m.numpy()[gate], d_j[gate], rtol=1e-4, atol=1e-3)
+    dm = d_more.numpy()
+    clear = gate & np.all(np.diff(dm, axis=1) > 1e-3, axis=1)
+    np.testing.assert_array_equal(i_m.numpy()[clear], i_j[clear])
+    if radius > 0:
+        assert gate.sum() > 0
+
+
+@pytest.mark.parametrize("case", ["random", "all invalid", "one point", "cell boundaries",
+                                  "beyond 1023 cells", "no mask"])
+def test_morton_keys_edge_cases(case):
+    """The port's Morton keys and sort (ops/knn.py:morton_keys /
+    morton_sort, the CUDA dispatcher's plain versions) against the JAX
+    package's `_morton_keys` / `morton_sort`: keys equal, 0x7FFFFFFF for an
+    invalid point, and the same permutation (both sorts are stable)."""
+    rng = np.random.default_rng(41)
+    pts = rng.uniform(-60, 60, (1000, 3)).astype(np.float32)
+    valid = rng.random(1000) > 0.3
+    if case == "all invalid":
+        valid[:] = False
+    elif case == "one point":
+        pts, valid = pts[:1], np.ones(1, bool)
+    elif case == "cell boundaries":  # origin 0 exactly, points on and just below 2 m multiples
+        cells = rng.integers(0, 40, (600, 3)).astype(np.float32) * 2
+        below = np.nextafter(cells, np.float32(-1))
+        pts = np.concatenate([[[0.001] * 3], cells[:300], below[300:]]).astype(np.float32)
+        valid = np.ones(len(pts), bool)
+    elif case == "beyond 1023 cells":  # up to 2500 cells an axis; invalid points below the origin
+        pts = rng.uniform(-50, 5000, (1000, 3)).astype(np.float32)
+        pts[valid] = np.abs(pts[valid])
+    jv = None if case == "no mask" else jnp.asarray(valid)
+    tv = None if case == "no mask" else torch.from_numpy(valid)
+    keys = tknn.morton_keys(torch.from_numpy(pts), tv, cell=2.0).numpy()
+    ok = np.ones(len(pts), bool) if tv is None else valid
+    if ok.any():
+        origin = pts[ok].min(0) - np.float32(1e-3)
+        ref = np.asarray(kp._morton_keys(jnp.asarray(pts), jnp.asarray(origin), 2.0))
+        np.testing.assert_array_equal(keys[ok], ref[ok])
+    assert (keys[~ok] == 0x7FFFFFFF).all() and (keys[ok] < 1 << 30).all()
+    if case == "beyond 1023 cells":
+        assert (keys[ok] == 0x3FFFFFFF).any()  # clamped to cell 1023 on every axis
+    perm = tknn.morton_sort(torch.from_numpy(pts), tv, cell=2.0).numpy()
+    np.testing.assert_array_equal(perm, np.asarray(kp.morton_sort(jnp.asarray(pts), jv, cell=2.0)))
+    np.testing.assert_array_equal(perm, np.argsort(keys, kind="stable"))
+    torch_keys = kc.morton_keys(torch.from_numpy(pts), tv)  # the CPU route of the dispatcher
+    assert torch.equal(torch_keys, torch.from_numpy(keys))
+
+
+@pytest.mark.parametrize("cell,ok", [(2.0, True), (1.0, True), (0.5, True), (4.0, True),
+                                     (1.5, False), (3.0, False), (0.0, False), (-2.0, False),
+                                     (float("inf"), False)])
+def test_morton_cell_must_be_power_of_two_on_cuda(cell, ok):
+    """The Morton-key kernel divides by `cell`; the plain version on a CUDA
+    tensor multiplies by its float32 reciprocal, which agrees on every key
+    only for a power of two. So the CUDA route refuses any other cell
+    (`check_cell`), while the CPU route, the plain version, takes any cell
+    and agrees with the JAX package's keys at 1.5 too."""
+    if ok:
+        kc.check_cell(cell)
+    else:
+        with pytest.raises(ValueError, match="power of two"):
+            kc.check_cell(cell)
+    if cell == 1.5:
+        rng = np.random.default_rng(43)
+        pts = rng.uniform(-60, 60, (500, 3)).astype(np.float32)
+        origin = pts.min(0) - np.float32(1e-3)
+        keys = kc.morton_keys(torch.from_numpy(pts), None, cell=cell).numpy()
+        np.testing.assert_array_equal(
+            keys, np.asarray(kp._morton_keys(jnp.asarray(pts), jnp.asarray(origin), cell)))

@@ -1,6 +1,7 @@
 // k-nearest-neighbour kernels for Hopper (sm_90a), bound with ctypes from
-// vil_fusion_tpu_torch/ops/cuda/knn_cuda.py through vil_knn_launch() (dense)
-// and vil_knn_sparse_launch() (sparse).
+// vil_fusion_tpu_torch/ops/cuda/knn_cuda.py through vil_knn_launch() (dense),
+// vil_knn_sparse() (sparse) and vil_morton_keys() (the sparse search's sort
+// keys).
 //
 // Replaces the Pallas TPU kernels of
 // vil_fusion_tpu/ops/pallas/knn_pallas.py:
@@ -13,9 +14,14 @@
 //       relative; here the keys are exact (float distance, int index) pairs,
 //       ordered by distance and then by the lower index.
 //   K3  _sparse_knn_kernel (:290-366) as deployed (mxu=False, unpacked
-//       merge): both sides Morton-sorted by the caller, a (query tile,
-//       database tile) block is skipped when the gap between the tiles'
-//       bounding boxes exceeds the radius; exact within the radius.
+//       merge), with what knn_pallas_sparse (:397-493) does around it in
+//       XLA: tile boxes (_tile_aabb :369), padding and the finishing step.
+//       Both sides in Morton order, a (query tile, database tile) block is
+//       skipped when the gap between the tiles' bounding boxes exceeds the
+//       radius; exact within the radius. The Morton keys of morton_sort
+//       (:379, _morton_keys :284) are two kernels here; the sort stays a
+//       library sort (torch.argsort), as the reference sorts outside its
+//       kernel.
 //   The mxu=False distance form (_pair_dist2 :45-49) is the DIFF variant of
 //   the K1/K2 kernel and K3's only form.
 //
@@ -93,15 +99,44 @@
 //     lane folds its own run of chunks with independent loads, then
 //     log2(lanes) shuffle rounds fold neighbouring lanes' lists, ordered by
 //     (distance, index), so the order of the folds does not matter.
-//   * K3 keeps its own partial kernel and strict helpers, and shares the
-//     merge. It deals the database tiles to the gridDim.y blocks round-robin
-//     (tile t goes to block t % n_split): the tiles near a query tile are
-//     Morton-neighbours, so contiguous chunks would leave most blocks with
-//     nothing. Every thread of a block evaluates the same box test on the
-//     same values (block-uniform branch); a block whose tiles are all far
-//     writes an empty list and ends. K3 on a lidar map skips about 99% of
-//     its blocks, so the box tests and the wrapper's tensor code are what
-//     is left there.
+//   * K3 is a whole call in two kernels and nothing else (a side the
+//     caller did not sort adds its two Morton-key kernels and the sort).
+//     On a lidar map it skips about 99% of its blocks, so what bounds it is
+//     neither bytes nor operations but what surrounds the few near blocks:
+//     in the first port a call was ~24 kernels, 20 of them PyTorch's tensor
+//     code for boxes, padding and finishing (85% of the call's host time),
+//     and the search kernel walked its database tiles' boxes one after the
+//     other with dependent loads. So: knn_sparse_box_kernel computes every
+//     database tile's box once (a warp a tile, shuffle min / max);
+//     knn_sparse_kernel gives a query tile n_split blocks of 8 groups of
+//     128 threads (n_split by the wrapper's plan, from shapes and the SM
+//     count: the host never reads a list). Each block computes the tile's
+//     box, tests all database tiles in parallel (a thread a tile, coalesced
+//     box loads) and compacts the near ones in order into shared memory
+//     (ballot and a prefix over the warps); the tile's n_split x 8 groups
+//     deal that list out round robin, the blocks taking turns first, so
+//     that a short list spreads over SMs. Each group holds the tile's 128
+//     queries and searches its share of the near tiles, as the dense
+//     kernels do: a tile's 128 columns are staged as four stride-4 samples
+//     of 32, each scored branch-free against the list's k-th best fixed at
+//     the sample's start (one hit bit a column), and only the hits go
+//     through the (distance, index)-ordered insert, written without
+//     branches (insert_select). Inserting every column in order sends most
+//     columns of a Morton-sorted tile through the insert, since distances
+//     fall along the curve as it nears the query. With n_split > 1 the
+//     groups write their lists to scratch and the tile's last block to
+//     finish (an atomic count a tile) folds them: the split stays inside
+//     the search kernel, no merge kernel. The block's groups' lists then
+//     merge in shared memory, ordered by (distance, index). Padding is by
+//     index (a query row past nq reads row nq - 1, a column past nd is
+//     invalid), and a side the caller did not sort is read through its
+//     permutation, so nothing is copied; the finishing step (row back to
+//     the caller's place, index through the database permutation, int32,
+//     +inf and 0 for a missing neighbour) is the search kernel's epilogue.
+//   * The Morton keys: one kernel takes each block's least valid
+//     coordinates, the next folds them into the origin and writes the
+//     30-bit keys, in the plain version's rounding (two launches instead of
+//     ~55 elementwise ones).
 // Tried on the card and dropped (PERF.md, section 6): several queries a thread
 // (2 and 4 register lists: fewer LDS, but at an equal number of blocks the
 // chunks get shorter and the lists' warm-up eats the gain; never faster);
@@ -116,6 +151,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 
 namespace {
@@ -388,39 +424,169 @@ __device__ __forceinline__ float sparse_dist2(float qx, float qy, float qz, floa
   return __fadd_rn(s, d.w);
 }
 
-// Stage database column `col` as (x, y, z, 0), w = +inf for an invalid or
-// out-of-range column.
+// Column `col` of the sorted database (read through `perm` where the caller
+// did not sort, perm[col] being its place in the caller's order) as
+// (x, y, z, 0); w = +inf for an invalid column and for one at or beyond nd
+// (the plain version pads the database with invalid points).
 __device__ __forceinline__ float4 sparse_column(const float* __restrict__ db,
                                                 const unsigned char* __restrict__ valid,
-                                                int col, int nd) {
+                                                const long long* __restrict__ perm, int col,
+                                                int nd) {
   float4 v = make_float4(0.f, 0.f, 0.f, INFINITY);
-  if (col < nd && valid[col]) {
-    v = make_float4(db[3 * col], db[3 * col + 1], db[3 * col + 2], 0.0f);
+  if (col < nd) {
+    const long long c = perm ? perm[col] : col;
+    if (valid[c]) v = make_float4(db[3 * c], db[3 * c + 1], db[3 * c + 2], 0.0f);
   }
   return v;
 }
 
-// K3. Block (x, y) owns query tile x (kThreads Morton-consecutive queries)
-// and the database tiles y, y + n_split, ...; q_lo/q_hi (n_q_tiles, 3) and
-// d_lo/d_hi (n_db_tiles, 3) are the tiles' boxes. nq and nd are whole tiles.
-template <int K>
+// (lo, hi) of (x, y, z) over the 32 lanes of a warp, in every lane.
+__device__ __forceinline__ void warp_box(float (&lo)[3], float (&hi)[3]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lo[c] = fminf(lo[c], __shfl_xor_sync(0xffffffffu, lo[c], o));
+      hi[c] = fmaxf(hi[c], __shfl_xor_sync(0xffffffffu, hi[c], o));
+    }
+  }
+}
+
+// K3, first kernel: box[2 t] = lo and box[2 t + 1] = hi (w unused) of the
+// valid columns of database tile t, one warp a tile; (+inf, -inf) for a
+// tile without valid columns. The plain version's _tile_aabb up to the
+// sign of a zero (fminf / fmaxf may return either zero of a tie), which no
+// box test can see: a gap is squared.
 __global__ void __launch_bounds__(kThreads)
-knn_sparse_partial_kernel(const float* __restrict__ q, const float* __restrict__ db,
-                          const unsigned char* __restrict__ valid,
-                          const float* __restrict__ q_lo, const float* __restrict__ q_hi,
-                          const float* __restrict__ d_lo, const float* __restrict__ d_hi,
-                          int nd, int db_tile, int n_db_tiles, int n_split,
-                          float radius2, float* __restrict__ part_d,
-                          int* __restrict__ part_i) {
-  __shared__ float4 tile[kGroup];
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const int split = blockIdx.y;
-  const float qx = q[3 * row], qy = q[3 * row + 1], qz = q[3 * row + 2];
-  float lo[3], hi[3];
+knn_sparse_box_kernel(const float* __restrict__ db, const unsigned char* __restrict__ valid,
+                      const long long* __restrict__ perm, int nd, int db_tile, int n_tiles,
+                      float4* __restrict__ box) {
+  const int tile = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (tile >= n_tiles) return;  // a whole warp
+  const int lane = threadIdx.x % 32;
+  float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+  for (int col = tile * db_tile + lane; col < (tile + 1) * db_tile; col += 32) {
+    const float4 v = sparse_column(db, valid, perm, col, nd);
+    if (v.w == 0.0f) {
+      lo[0] = fminf(lo[0], v.x), lo[1] = fminf(lo[1], v.y), lo[2] = fminf(lo[2], v.z);
+      hi[0] = fmaxf(hi[0], v.x), hi[1] = fmaxf(hi[1], v.y), hi[2] = fmaxf(hi[2], v.z);
+    }
+  }
+  warp_box(lo, hi);
+  if (lane == 0) {
+    box[2 * tile] = make_float4(lo[0], lo[1], lo[2], 0.0f);
+    box[2 * tile + 1] = make_float4(hi[0], hi[1], hi[2], 0.0f);
+  }
+}
+
+// insert<K, true> without a branch: the entries that (d, i) precedes in
+// (distance, index) order form a suffix of the ascending list; each moves
+// down a slot and (d, i) takes the first. Two compares and four selects a
+// slot, where the branchy form took ~96 instructions a call in K3's update.
+template <int K>
+__device__ __forceinline__ void insert_select(float (&bd)[K], int (&bi)[K], float d, int i) {
+  bool prev = false;  // (d, i) precedes entry s - 1
+  float pd = 0.0f;
+  int pi = 0;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const bool lt = d < bd[s] || (d == bd[s] && i < bi[s]);
+    const float od = bd[s];
+    const int oi = bi[s];
+    bd[s] = lt ? (prev ? pd : d) : od;
+    bi[s] = lt ? (prev ? pi : i) : oi;
+    prev = lt;
+    pd = od;
+    pi = oi;
+  }
+}
+
+// K3's blocks: kSparseGroups groups of 128 threads, each holding the query
+// tile's 128 queries, one a thread.
+constexpr int kSparseGroups = 8;
+
+// The 128 threads of group g wait for each other (barrier 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kThreads) : "memory");
+}
+
+// K3's shared memory: the groups' staged columns, or, once the search is
+// over, the lists that half of the groups hand to the other half.
+template <int K>
+union SparseShared {
+  float4 stage[kSparseGroups][kGroup];
+  struct {
+    float d[kSparseGroups / 2][K][kThreads];
+    int i[kSparseGroups / 2][K][kThreads];
+  } merge;
+};
+
+// K3, second kernel. Block (x, y) is share y of query tile x: rows
+// [128 x, 128 (x+1)) of the sorted queries (through q_perm where the caller
+// did not sort), a row at or beyond nq reading row nq - 1 and writing
+// nothing (the plain version's padding with the last sorted query). Its S
+// groups of 128 threads hold the same 128 queries, one a thread. The block
+// computes its tile's box, then walks the database tiles in windows of
+// S x 128: every thread tests one tile's box (rounded as sparse_near), and
+// the near tiles of the window are compacted in order into near[] by
+// ballots and a prefix over the warps. The tile's n_split x S groups deal
+// the list out round robin, the blocks first: group g of block y takes the
+// entries p with p % (n_split S) == g n_split + y. A group stages each of its tiles' columns 128
+// at a time as four stride-4 samples of 32; a sample is scanned against the
+// list's k-th best, and only the columns at or under it are inserted,
+// ordered by (distance, index). With n_split > 1 every group writes its
+// list to part_*, and the tile's last block to finish (counter[x], which
+// it sets back to 0 for the next call) folds the tile's n_split x S lists,
+// group g those of groups g, g + S, ... Then log2(S) rounds merge the
+// block's groups' lists in shared memory, ordered by (distance, index), and
+// group 0 finishes each row as sparse_finish does: written at the caller's
+// row, indices through d_perm, int32, +inf and index 0 for a missing
+// neighbour, distances clamped at 0.
+template <int K>
+__global__ void __launch_bounds__(kSparseGroups * kThreads, 1)
+knn_sparse_kernel(const float* __restrict__ q, const long long* __restrict__ q_perm, int nq,
+                  const float* __restrict__ db, const unsigned char* __restrict__ valid,
+                  const long long* __restrict__ d_perm, int nd, int db_tile, int n_tiles,
+                  const float4* __restrict__ box, float radius2, float* __restrict__ part_d,
+                  int* __restrict__ part_i, unsigned* __restrict__ counter,
+                  float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int S = kSparseGroups, kBlock = S * kThreads, kWarps = kBlock / 32;
+  __shared__ SparseShared<K> sh;
+  __shared__ int near[kBlock];
+  __shared__ int count[kWarps];
+  __shared__ float qbox[kThreads / 32][6];
+  __shared__ int last;
+  const int t = threadIdx.x, g = t / kThreads, l = t % kThreads;
+  const int lane = t % 32, warp = t / 32;
+  // the blocks of a tile take turns first: a short list spreads over SMs
+  const int n_split = gridDim.y, n_groups = n_split * S, gid = g * n_split + blockIdx.y;
+  const int row = blockIdx.x * kThreads + l;
+  const int src_row = min(row, nq - 1);
+  const long long src = q_perm ? q_perm[src_row] : src_row;
+  const float qx = q[3 * src], qy = q[3 * src + 1], qz = q[3 * src + 2];
+
+  if (g == 0) {  // the query tile's box, from group 0's four warps
+    float lo[3] = {qx, qy, qz}, hi[3] = {qx, qy, qz};
+    warp_box(lo, hi);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        qbox[warp][c] = lo[c];
+        qbox[warp][3 + c] = hi[c];
+      }
+    }
+  }
+  __syncthreads();
+  float qlo[3], qhi[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    lo[c] = q_lo[3 * blockIdx.x + c];
-    hi[c] = q_hi[3 * blockIdx.x + c];
+    qlo[c] = qbox[0][c];
+    qhi[c] = qbox[0][3 + c];
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) {
+      qlo[c] = fminf(qlo[c], qbox[w][c]);
+      qhi[c] = fmaxf(qhi[c], qbox[w][3 + c]);
+    }
   }
 
   float bd[K];
@@ -430,32 +596,228 @@ knn_sparse_partial_kernel(const float* __restrict__ q, const float* __restrict__
     bd[s] = INFINITY;
     bi[s] = 0;
   }
-
-  for (int t = split; t < n_db_tiles; t += n_split) {
-    float d2box = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float g = fmaxf(fmaxf(__fsub_rn(d_lo[3 * t + c], hi[c]),
-                                  __fsub_rn(lo[c], d_hi[3 * t + c])), 0.0f);
-      d2box = __fadd_rn(d2box, __fmul_rn(g, g));
+  float4* stage = sh.stage[g];
+  int listed = 0;  // near tiles of the earlier windows
+  // block-uniform loop: every thread reaches each __syncthreads
+  for (int w0 = 0; w0 < n_tiles; w0 += kBlock) {
+    const int tile = w0 + t;
+    bool is_near = false;
+    if (tile < n_tiles) {
+      const float4 lo = box[2 * tile], hi = box[2 * tile + 1];
+      const float gx = fmaxf(fmaxf(__fsub_rn(lo.x, qhi[0]), __fsub_rn(qlo[0], hi.x)), 0.0f);
+      const float gy = fmaxf(fmaxf(__fsub_rn(lo.y, qhi[1]), __fsub_rn(qlo[1], hi.y)), 0.0f);
+      const float gz = fmaxf(fmaxf(__fsub_rn(lo.z, qhi[2]), __fsub_rn(qlo[2], hi.z)), 0.0f);
+      is_near = __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz))
+                <= radius2;
     }
-    if (!(d2box <= radius2)) continue;  // the same for every thread of the block
-    const int c0 = t * db_tile;
-    for (int g0 = c0; g0 < c0 + db_tile; g0 += kGroup) {
-      __syncthreads();  // the previous group has been consumed
-      tile[threadIdx.x] = sparse_column(db, valid, g0 + threadIdx.x, nd);
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < kGroup; ++c) {
-        insert<K>(bd, bi, sparse_dist2(qx, qy, qz, tile[c]), g0 + c);
+    const unsigned ballot = __ballot_sync(0xffffffffu, is_near);
+    if (lane == 0) count[warp] = __popc(ballot);
+    __syncthreads();
+    int base = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = count[w];
+      base += w < warp ? c : 0;
+      total += c;
+    }
+    if (is_near) near[base + __popc(ballot & ((1u << lane) - 1u))] = tile;
+    __syncthreads();
+    // group-uniform loops: the group's 128 threads reach each group_sync
+    for (int e = ((gid - listed) % n_groups + n_groups) % n_groups; e < total; e += n_groups) {
+      const int c0 = near[e] * db_tile;
+      for (int g0 = c0; g0 < c0 + db_tile; g0 += kGroup) {
+        group_sync(g);  // the group's previous columns have been consumed
+        stage[(l % kSubs) * kSub + l / kSubs] = sparse_column(db, valid, d_perm, g0 + l, nd);
+        group_sync(g);
+        // scan, then update, as the dense kernels do: run r holds columns
+        // g0 + 4 p + r, a stride-4 sample of the 128, and is scored
+        // branch-free against the list's k-th best as it stands at the
+        // run's start, one bit a column at or under it; the marked columns
+        // then go through the insert ordered by (distance, index). The k-th
+        // best only falls, so no column of the final list is left unmarked,
+        // and the order of the inserts does not matter: the list is the
+        // (distance, index)-least k of all columns, as the plain version's.
+#pragma unroll
+        for (int r = 0; r < kSubs; ++r) {
+          const float4* run = stage + r * kSub;
+          const float lim = bd[K - 1];
+          unsigned hits = 0u;
+#pragma unroll
+          for (int p = 0; p < kSub; ++p) {
+            hits |= (sparse_dist2(qx, qy, qz, run[p]) <= lim ? 1u : 0u) << p;
+          }
+          for (; hits != 0u; hits &= hits - 1u) {
+            const int p = __ffs(hits) - 1;
+            insert_select<K>(bd, bi, sparse_dist2(qx, qy, qz, run[p]), g0 + p * kSubs + r);
+          }
+        }
       }
     }
+    listed += total;
+    __syncthreads();  // near[] and count[] are rewritten by the next window
   }
-  const size_t base = ((size_t)row * n_split + split) * K;
+
+  if (n_split > 1) {
+    // hand the group's list over; the tile's last block to finish goes on
+    const size_t tile_lists = (size_t)blockIdx.x * n_groups;
+    const size_t mine = (tile_lists + gid) * K * kThreads + l;
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    part_d[base + s] = bd[s];
-    part_i[base + s] = bi[s];
+    for (int s = 0; s < K; ++s) {
+      part_d[mine + s * kThreads] = bd[s];
+      part_i[mine + s * kThreads] = bi[s];
+    }
+    __threadfence();
+    __syncthreads();
+    if (t == 0) last = atomicAdd(&counter[blockIdx.x], 1u) == (unsigned)n_split - 1u;
+    __syncthreads();
+    if (!last) return;  // block-uniform
+    __threadfence();
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      bd[s] = INFINITY;
+      bi[s] = 0;
+    }
+    for (int j = g; j < n_groups; j += S) {
+      const size_t at = (tile_lists + j) * K * kThreads + l;
+      // from L2: the other blocks' writes never passed through this SM's L1
+      for (int s = 0; s < K; ++s) {
+        const float d = __ldcg(part_d + at + s * kThreads);
+        const int i = __ldcg(part_i + at + s * kThreads);
+        // a list is ascending: once an entry stays out, so do the rest
+        // (a group that found nothing hands over +inf only)
+        if (!(d < bd[K - 1] || (d == bd[K - 1] && i < bi[K - 1]))) break;
+        insert_select<K>(bd, bi, d, i);
+      }
+    }
+    if (t == 0) counter[blockIdx.x] = 0u;
+  }
+
+  // group g + h hands its list to group g, h = S/2, ..., 1 (the staged
+  // columns are dead: every group has passed the last barrier above)
+#pragma unroll
+  for (int h = S / 2; h >= 1; h /= 2) {
+    if (g >= h && g < 2 * h) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        sh.merge.d[g - h][s][l] = bd[s];
+        sh.merge.i[g - h][s][l] = bi[s];
+      }
+    }
+    __syncthreads();
+    if (g < h) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        insert_select<K>(bd, bi, sh.merge.d[g][s][l], sh.merge.i[g][s][l]);
+      }
+    }
+    __syncthreads();
+  }
+  if (g == 0 && row < nq) {
+    const long long dst = (q_perm ? q_perm[row] : row) * K;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const bool miss = isinf(bd[s]);
+      out_d[dst + s] = miss ? bd[s] : fmaxf(bd[s], 0.0f);
+      out_i[dst + s] = miss ? 0 : d_perm ? (int)d_perm[bi[s]] : bi[s];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Morton keys (morton_sort's keys; the sort itself stays torch.argsort, as
+// the reference sorts outside its kernel)
+// ---------------------------------------------------------------------------
+
+constexpr int kMortonThreads = 256;
+constexpr int kMortonMaxPartials = 256;  // blocks of the origin kernel at most
+
+// The least (x, y, z) over the block, in thread 0; `part` holds a warp's.
+__device__ __forceinline__ void block_min3(float (&m)[3], float (*part)[3]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m[c] = fminf(m[c], __shfl_xor_sync(0xffffffffu, m[c], o));
+  }
+  if (threadIdx.x % 32 == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) part[threadIdx.x / 32][c] = m[c];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kMortonThreads / 32; ++w) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) m[c] = fminf(m[c], part[w][c]);
+    }
+  }
+}
+
+// partial[3 b + c]: the least coordinate c of the valid points of block b's
+// grid-stride share (+inf where it has none). valid == nullptr: all valid.
+__global__ void __launch_bounds__(kMortonThreads)
+morton_origin_kernel(const float* __restrict__ pts, const unsigned char* __restrict__ valid,
+                     int n, float* __restrict__ partial) {
+  __shared__ float part[kMortonThreads / 32][3];
+  float m[3] = {INFINITY, INFINITY, INFINITY};
+  for (int i = blockIdx.x * kMortonThreads + threadIdx.x; i < n; i += gridDim.x * kMortonThreads) {
+    if (valid == nullptr || valid[i]) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) m[c] = fminf(m[c], pts[3 * i + c]);
+    }
+  }
+  block_min3(m, part);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) partial[3 * blockIdx.x + c] = m[c];
+  }
+}
+
+// Interleave the low 10 bits of x with two zero bits (ops/knn.py:_spread3).
+__device__ __forceinline__ unsigned spread3(unsigned x) {
+  x = (x | (x << 16)) & 0x030000FFu;
+  x = (x | (x << 8)) & 0x0300F00Fu;
+  x = (x | (x << 4)) & 0x030C30C3u;
+  x = (x | (x << 2)) & 0x09249249u;
+  return x;
+}
+
+// keys[i]: the 30-bit Morton key of point i, 0x7FFFFFFF for an invalid
+// one. Every block folds the n_partial minima into the origin (the least
+// valid coordinate minus 1e-3, a float32 subtraction as the plain
+// version's tensor minus a Python float). A cell coordinate is
+// (p - origin) / cell rounded once each, truncated toward zero
+// (__float2int_rz, which saturates as PyTorch's CUDA cast does) and clamped
+// to 0..1023. For a cell that is a power of two (2.0 throughout the port)
+// the division equals the multiplication by the reciprocal that PyTorch's
+// CUDA kernel does for a tensor divided by a Python float.
+__global__ void __launch_bounds__(kMortonThreads)
+morton_key_kernel(const float* __restrict__ pts, const unsigned char* __restrict__ valid, int n,
+                  const float* __restrict__ partial, int n_partial, float cell,
+                  int* __restrict__ keys) {
+  __shared__ float part[kMortonThreads / 32][3];
+  __shared__ float origin[3];
+  float m[3] = {INFINITY, INFINITY, INFINITY};
+  for (int p = threadIdx.x; p < n_partial; p += kMortonThreads) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m[c] = fminf(m[c], partial[3 * p + c]);
+  }
+  block_min3(m, part);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) origin[c] = __fsub_rn(m[c], 1e-3f);
+  }
+  __syncthreads();
+  for (int i = blockIdx.x * kMortonThreads + threadIdx.x; i < n; i += gridDim.x * kMortonThreads) {
+    int key = 0x7FFFFFFF;
+    if (valid == nullptr || valid[i]) {
+      unsigned cc[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int v = __float2int_rz(__fdiv_rn(__fsub_rn(pts[3 * i + c], origin[c]), cell));
+        cc[c] = (unsigned)min(max(v, 0), 1023);
+      }
+      key = (int)(spread3(cc[0]) | (spread3(cc[1]) << 1) | (spread3(cc[2]) << 2));
+    }
+    keys[i] = key;
   }
 }
 
@@ -549,18 +911,25 @@ void launch_dense(const float* q, const float* db, const unsigned char* valid, i
   if (n_split > 1) launch_merge<K>(part_d, part_i, nq, n_split, out_d, out_i, stream);
 }
 
+// The box kernel where the database has a tile, then the search over an
+// (n_q_tiles, n_split) grid.
 template <int K>
-void launch_sparse(const float* q, const float* db, const unsigned char* valid,
-                   const float* q_lo, const float* q_hi, const float* d_lo,
-                   const float* d_hi, int nq, int nd, int db_tile, int n_split,
-                   float radius2, float* part_d, int* part_i, float* out_d,
-                   int* out_i, cudaStream_t stream) {
-  const dim3 grid(nq / kThreads, n_split);
-  knn_sparse_partial_kernel<K><<<grid, kThreads, 0, stream>>>(
-      q, db, valid, q_lo, q_hi, d_lo, d_hi, nd, db_tile, nd / db_tile, n_split,
-      radius2, part_d, part_i);
+void launch_sparse(const float* q, const long long* q_perm, int nq, const float* db,
+                   const unsigned char* valid, const long long* d_perm, int nd, int db_tile,
+                   int n_split, float radius2, float4* box, float* part_d, int* part_i,
+                   unsigned* counter, float* out_d, int* out_i, cudaStream_t stream) {
+  const int n_tiles = (nd + db_tile - 1) / db_tile;
+  if (n_tiles > 0) {
+    constexpr int kTilesPerBlock = kThreads / 32;
+    knn_sparse_box_kernel<<<(n_tiles + kTilesPerBlock - 1) / kTilesPerBlock, kThreads, 0,
+                            stream>>>(db, valid, d_perm, nd, db_tile, n_tiles, box);
+    g_enqueued.fetch_add(1, std::memory_order_relaxed);
+  }
+  const dim3 grid((nq + kThreads - 1) / kThreads, n_split);
+  knn_sparse_kernel<K><<<grid, kSparseGroups * kThreads, 0, stream>>>(
+      q, q_perm, nq, db, valid, d_perm, nd, db_tile, n_tiles, box, radius2, part_d, part_i,
+      counter, out_d, out_i);
   g_enqueued.fetch_add(1, std::memory_order_relaxed);
-  launch_merge<K>(part_d, part_i, nq, n_split, out_d, out_i, stream);
 }
 
 }  // namespace
@@ -608,45 +977,51 @@ extern "C" int vil_knn_launch(const void* q, const void* db, const void* valid,
   return (int)cudaGetLastError();
 }
 
-// Kernels that vil_knn_launch and vil_knn_sparse_launch have enqueued since
+// Kernels that vil_knn_launch, vil_knn_sparse and vil_morton_keys have enqueued since
 // the library was loaded, counted at the launch sites.
 extern "C" long long vil_knn_kernels_enqueued() {
   return g_enqueued.load(std::memory_order_relaxed);
 }
 
-// K3. q (nq, 3) and db (nd, 3) f32 in Morton order, nq a multiple of 128 (the
-// query tile) and nd of db_tile, itself a multiple of 128; valid (nd,) bool;
-// q_lo/q_hi (nq / 128, 3) and d_lo/d_hi (nd / db_tile, 3) f32 boxes;
-// radius2 the squared radius; part_* hold (nq, n_split, k), out_* (nq, k)
-// with indices into the sorted database. Launches on `stream`, allocates
-// nothing, does not synchronise. Returns cudaGetLastError().
-extern "C" int vil_knn_sparse_launch(const void* q, const void* db, const void* valid,
-                                     const void* q_lo, const void* q_hi,
-                                     const void* d_lo, const void* d_hi, int nq,
-                                     int nd, int k, int db_tile, int n_split,
-                                     float radius2, void* part_d, void* part_i,
-                                     void* out_d, void* out_i, void* stream) {
-  if (nq <= 0 || nq % kThreads != 0 || db_tile <= 0 || db_tile % kGroup != 0 ||
-      nd <= 0 || nd % db_tile != 0 || n_split <= 0) {
+// K3. q (nq, 3) and db (nd, 3) f32, valid (nd,) bool, as the caller holds
+// them; q_perm (nq,) / d_perm (nd,) int64 the Morton order of a side the
+// caller did not sort (nullptr for a side in Morton order already). Any
+// nq >= 1 and nd >= 0; db_tile a multiple of 128; radius2 the squared
+// radius; n_split >= 1 blocks a query tile. scratch: 32 B a database tile
+// for the boxes, then, where n_split > 1, 8 B an entry of the (query tile,
+// n_split x 8 groups, k, 128 rows) lists; counter (n_q_tiles,) uint32, all
+// 0 (the kernel leaves them 0). out_* (nq, k) in the caller's row order
+// with indices into the caller's database. Enqueues the box kernel (none
+// without a database tile) and the search on `stream`; allocates nothing,
+// does not synchronise. Returns cudaGetLastError().
+extern "C" int vil_knn_sparse(const void* q, const void* q_perm, int nq, const void* db,
+                              const void* valid, const void* d_perm, int nd, int k,
+                              int db_tile, int n_split, float radius2, void* scratch,
+                              void* counter, void* out_d, void* out_i, void* stream) {
+  if (nq <= 0 || nd < 0 || db_tile <= 0 || db_tile % kGroup != 0 || k < 1 || k > 8 ||
+      n_split < 1 || n_split > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);
+  const long long* qp = static_cast<const long long*>(q_perm);
   const float* dbf = static_cast<const float*>(db);
   const unsigned char* vb = static_cast<const unsigned char*>(valid);
-  const float* ql = static_cast<const float*>(q_lo);
-  const float* qh = static_cast<const float*>(q_hi);
-  const float* dl = static_cast<const float*>(d_lo);
-  const float* dh = static_cast<const float*>(d_hi);
-  float* pd = static_cast<float*>(part_d);
-  int* pi = static_cast<int*>(part_i);
+  const long long* dp = static_cast<const long long*>(d_perm);
+  float4* bx = static_cast<float4*>(scratch);
+  const size_t n_tiles = (nd + db_tile - 1) / db_tile;
+  const size_t lists = (size_t)((nq + kThreads - 1) / kThreads) * n_split * kSparseGroups * k *
+                       kThreads;
+  float* pd = reinterpret_cast<float*>(bx + 2 * n_tiles);
+  int* pi = reinterpret_cast<int*>(pd + lists);
+  unsigned* cnt = static_cast<unsigned*>(counter);
   float* od = static_cast<float*>(out_d);
   int* oi = static_cast<int*>(out_i);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-#define VIL_KNN_CASE(KK)                                                       \
-  case KK:                                                                     \
-    launch_sparse<KK>(qf, dbf, vb, ql, qh, dl, dh, nq, nd, db_tile, n_split,   \
-                      radius2, pd, pi, od, oi, s);                             \
+#define VIL_KNN_CASE(KK)                                                                      \
+  case KK:                                                                                    \
+    launch_sparse<KK>(qf, qp, nq, dbf, vb, dp, nd, db_tile, n_split, radius2, bx, pd, pi, cnt, \
+                      od, oi, s);                                                             \
     break;
     VIL_KNN_CASE(1)
     VIL_KNN_CASE(2)
@@ -657,8 +1032,28 @@ extern "C" int vil_knn_sparse_launch(const void* q, const void* db, const void* 
     VIL_KNN_CASE(7)
     VIL_KNN_CASE(8)
 #undef VIL_KNN_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Morton keys of pts (n, 3) f32 with valid (n,) bool (nullptr: all valid)
+// into keys (n,) int32, n >= 1; partial is scratch of 3 KB. Two kernels
+// on `stream`: the blocks' minima, then the origin and the keys.
+extern "C" int vil_morton_keys(const void* pts, const void* valid, int n, float cell,
+                               void* partial, void* keys, void* stream) {
+  if (n <= 0 || !(cell > 0.0f)) return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(pts);
+  const unsigned char* v = static_cast<const unsigned char*>(valid);
+  float* part = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 8 points a thread to find the minima, 4 to write the keys
+  const int n_partial =
+      std::min(kMortonMaxPartials, (n + 8 * kMortonThreads - 1) / (8 * kMortonThreads));
+  const int key_blocks = std::min(1024, (n + 4 * kMortonThreads - 1) / (4 * kMortonThreads));
+  morton_origin_kernel<<<n_partial, kMortonThreads, 0, s>>>(p, v, n, part);
+  g_enqueued.fetch_add(1, std::memory_order_relaxed);
+  morton_key_kernel<<<key_blocks, kMortonThreads, 0, s>>>(p, v, n, part, n_partial, cell,
+                                                          static_cast<int*>(keys));
+  g_enqueued.fetch_add(1, std::memory_order_relaxed);
   return (int)cudaGetLastError();
 }

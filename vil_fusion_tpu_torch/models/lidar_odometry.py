@@ -25,7 +25,6 @@ from vil_fusion_tpu_torch.ops import hash_knn as hknn
 from vil_fusion_tpu_torch.ops import lie
 from vil_fusion_tpu_torch.ops import voxel as voxel_ops
 from vil_fusion_tpu_torch.ops.cuda import knn_cuda as knn_ops  # CUDA kernels on the card, plain on CPU
-from vil_fusion_tpu_torch.ops.knn import morton_sort
 from vil_fusion_tpu_torch.ops.linalg import (gram3, solve_spd_unrolled, sym3x3_principal,
                                              sym3x3_smallest)
 
@@ -204,7 +203,8 @@ def scan_to_map(feats: LidarFeatures, edge_map, edge_map_valid, surf_map, surf_m
     passes, n_inner damped-GN steps each.
 
     With sparse_knn both sides are Morton-sorted once here, on every device
-    (the reference sorts on the TPU only, where its sparse kernel runs):
+    (the reference sorts on the TPU only, where its sparse kernel runs; on
+    the card the keys are a kernel, knn_cuda.morton_sort):
     rigid motion across the passes keeps the tiles compact, so one sort
     replaces a sort inside every search. The order is internal; only poses
     leave this function.
@@ -217,14 +217,14 @@ def scan_to_map(feats: LidarFeatures, edge_map, edge_map_valid, surf_map, surf_m
     the neighbours. Neighbours missing in pass 1 stay masked."""
     presorted = cfg.sparse_knn and not cfg.use_hash_knn
     if presorted:
-        ep = morton_sort(feats.edge, feats.edge_valid)
-        sp = morton_sort(feats.surf, feats.surf_valid)
+        ep = knn_ops.morton_sort(feats.edge, feats.edge_valid)
+        sp = knn_ops.morton_sort(feats.surf, feats.surf_valid)
         feats = feats._replace(
             edge=feats.edge[ep], edge_valid=feats.edge_valid[ep],
             surf=feats.surf[sp], surf_valid=feats.surf_valid[sp])
-        emp = morton_sort(edge_map, edge_map_valid)
+        emp = knn_ops.morton_sort(edge_map, edge_map_valid)
         edge_map, edge_map_valid = edge_map[emp], edge_map_valid[emp]
-        smp = morton_sort(surf_map, surf_map_valid)
+        smp = knn_ops.morton_sort(surf_map, surf_map_valid)
         surf_map, surf_map_valid = surf_map[smp], surf_map_valid[smp]
     q, p = q_init, p_init
     eye6 = torch.eye(6, dtype=p.dtype, device=p.device)

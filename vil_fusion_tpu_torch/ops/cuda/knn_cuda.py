@@ -1,16 +1,19 @@
-"""kNN dispatcher and the CUDA wrappers of K1 (grouped), K2 (exact) and K3
-(sparse).
+"""kNN dispatcher and the CUDA wrappers of K1 (grouped), K2 (exact), K3
+(sparse) and of the Morton keys that K3's callers sort by.
 
 Counterpart of vil_fusion_tpu/ops/pallas/knn_pallas.py: `knn` keeps the
 dispatcher's signature (knn_pallas.py:496-528) and routes by the tensors'
 device. On CUDA, `radius=` goes to K3 (`knn_sparse`, replacing
-`_sparse_knn_kernel`: Morton-sorted sides, far blocks skipped, difference-
-form distances), `approx=True` to K1 (`knn_grouped`, replacing
-`_knn_kernel_grouped`) and everything else to K2 (`knn_exact`, replacing
-`_knn_kernel`); K1 and K2 take `form="expanded"` (the reference's mxu=True
-form, the default) or `form="diff"` (its mxu=False form). A CPU tensor goes
-to the plain PyTorch versions in ops/knn.py, re-exported here as
-`knn_grouped_plain` / `knn_exact_plain` / `knn_sparse_plain`.
+`_sparse_knn_kernel` with its tile boxes, padding and finishing step:
+Morton-sorted sides, far blocks skipped, difference-form distances),
+`approx=True` to K1 (`knn_grouped`, replacing `_knn_kernel_grouped`) and
+everything else to K2 (`knn_exact`, replacing `_knn_kernel`); K1 and K2
+take `form="expanded"` (the reference's mxu=True form, the default) or
+`form="diff"` (its mxu=False form). `morton_sort` (knn_pallas.py:379) keeps
+the plain version's signature: its keys are a kernel, the sort stays
+`torch.argsort`. A CPU tensor goes to the plain PyTorch versions in
+ops/knn.py, re-exported here as `knn_grouped_plain` / `knn_exact_plain` /
+`knn_sparse_plain` / `morton_keys_plain`.
 
 The kernels are CUDA C++ (csrc/knn.cu), compiled with nvcc for sm_90a into
 build/kernels/ at first use and bound with ctypes: pointers from
@@ -23,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -52,12 +56,18 @@ _BLOCKS_PER_SM = 8
 # smaller tiles have tighter boxes and skip more)
 SPARSE_Q_TILE = 128
 SPARSE_DB_TILE = 128
+# K3's blocks hold SPARSE_GROUPS groups of 128 threads (csrc/knn.cu)
+SPARSE_GROUPS = 8
+_MORTON_SCRATCH_BYTES = 3 * 4 * 256  # the key kernels' partial minima
 
 knn_exact_plain = knn_plain.knn
 knn_grouped_plain = knn_plain.knn_grouped
 knn_sparse_plain = knn_plain.knn_sparse
+morton_keys_plain = knn_plain.morton_keys
 
 _lib = None
+_scratch_bufs: dict = {}
+_counter_bufs: dict = {}
 
 
 def build(verbose: bool = False) -> ctypes.CDLL:
@@ -91,9 +101,12 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
-    fn = lib.vil_knn_sparse_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 5)
+    fn = lib.vil_knn_sparse
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    fn = lib.vil_morton_keys
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     lib.vil_knn_kernels_enqueued.argtypes = []
     lib.vil_knn_kernels_enqueued.restype = ctypes.c_longlong
@@ -101,7 +114,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     return lib
 
 
-_ENTRY = re.compile(r"Compiling entry function '\w*?(knn_(?:sparse_partial|dense|merge)_kernel)"
+_ENTRY = re.compile(r"Compiling entry function '\w*?(knn_(?:sparse|dense|merge)_kernel)"
                     r"ILi(\d)E(?:Lb([01])ELb([01])E)?")
 
 
@@ -109,9 +122,12 @@ def _ptxas_summary(log: str, ks=(1, 3, 5)) -> str:
     """Registers / spills / shared memory of the kernel instances with k in
     `ks`, from nvcc's -Xptxas -v report, and the count of instances that
     spill among all of them."""
-    out, label, spilling = [], None, 0
+    out, label, spilling, name = [], None, [], None
     for line in log.splitlines():
         m = _ENTRY.search(line)
+        if "Compiling entry function" in line:
+            label = None
+            name = line.split("'")[1] if "'" in line else line
         if m:
             kind = ""
             if m.group(3):
@@ -119,12 +135,13 @@ def _ptxas_summary(log: str, ks=(1, 3, 5)) -> str:
                         + (", diff" if m.group(4) == "1" else ", expanded"))
             label = f"{m.group(1)}<k={m.group(2)}{kind}>" if int(m.group(2)) in ks else None
         elif "spill" in line:
-            spilling += "0 bytes spill stores, 0 bytes spill loads" not in line
+            if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spilling.append(name)
             if label:
                 out.append(f"  {label}: {line.split(':', 1)[-1].strip()}")
         elif label and "Used" in line:
             out.append(f"  {label}: {line.split(':', 1)[-1].strip()}")
-    out.append(f"  instances that spill, all k: {spilling}")
+    out.append(f"  instances that spill, all k: {len(spilling)} {spilling}")
     return "\n".join(out)
 
 
@@ -161,6 +178,61 @@ def plan(nq: int, nd: int, k: int, sm_count: int, grouped: bool = False) -> Plan
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class SparsePlan(NamedTuple):
+    """How one K3 call is launched: n_split blocks of SPARSE_GROUPS x 128
+    threads a query tile of 128."""
+    n_split: int  # blocks a query tile (gridDim.y), which deal its near list out
+    blocks: int  # query tiles (gridDim.x)
+    db_tiles: int  # database tiles, one box each
+    kernels: int  # kernels the call enqueues: the box kernel (with a tile), the search
+
+
+def sparse_plan(nq: int, nd: int, sm_count: int, db_tile: int = SPARSE_DB_TILE) -> SparsePlan:
+    """K3's launch plan from the shape and the card's SM count alone (the
+    near-tile lists are never read on the host).
+
+    A block fills an SM, so a query tile gets as many blocks as the card
+    has SMs for each tile, and no more than it takes to give every group
+    of the split one database tile where all are near. With a split the
+    tile's last block merges the blocks' lists inside the search kernel.
+    No query: nothing is launched."""
+    if nq <= 0:
+        return SparsePlan(0, 0, 0, 0)
+    blocks, db_tiles = -(-nq // _THREADS), -(-nd // db_tile)
+    n_split = max(1, min(sm_count // blocks, -(-db_tiles // SPARSE_GROUPS)))
+    return SparsePlan(n_split, blocks, db_tiles, 1 + (db_tiles > 0))
+
+
+def sparse_scratch_bytes(how: SparsePlan, k: int) -> int:
+    """K3's scratch: 32 B of box a database tile, and with a split the
+    groups' lists, (distance, index) for k neighbours of 128 rows."""
+    lists = how.blocks * how.n_split * SPARSE_GROUPS * k * _THREADS if how.n_split > 1 else 0
+    return 32 * how.db_tiles + 8 * lists
+
+
+def _scratch(dev: torch.device, nbytes: int) -> torch.Tensor:
+    """A device buffer of at least `nbytes`, kept per device and grown when
+    too small: K3's tile boxes and lists and the Morton keys' partial
+    minima. The kernels that use it run on the caller's current stream in
+    the order they were enqueued, so one buffer serves them all."""
+    buf = _scratch_bufs.get(dev)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8, device=dev)
+        _scratch_bufs[dev] = buf
+    return buf
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """K3's per-query-tile counts of finished blocks: int32 zeros, kept per
+    device (the search kernel leaves them 0) and replaced by zeros when too
+    short."""
+    buf = _counter_bufs.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _counter_bufs[dev] = buf
+    return buf
 
 
 def kernels_enqueued() -> int:
@@ -256,32 +328,57 @@ knn_exact.launches_diff = 0
 knn_exact.last_call = None
 
 
-def sparse_search_cuda(prob: knn_plain.SparseProblem, k: int, radius: float, db_tile: int):
-    """K3's kernel on a prepared problem (ops/knn.py:sparse_prepare, query
-    tile 128): the CUDA counterpart of `sparse_search_plain`. Returns rows of
-    the tiled problem (ascending, sorted-database indices, index 0 where
-    missing). Counts one launch."""
+def check_cell(cell: float):
+    """The key kernel divides by `cell`; the plain version on a CUDA tensor
+    multiplies by its float32 reciprocal. The two agree on every key only
+    for a power of two (2.0 throughout the port), so another cell raises."""
+    if not (cell > 0 and math.isfinite(cell) and math.frexp(cell)[0] == 0.5):
+        raise ValueError(f"on CUDA the Morton cell must be a power of two, got {cell}")
+
+
+def morton_keys(pts, valid=None, cell: float = 2.0):
+    """30-bit Morton keys (int32) of points (n, 3) in 1024 cells an axis of
+    size `cell` from the least valid point minus 1e-3; 0x7FFFFFFF for an
+    invalid point (semantics of ops/knn.py:morton_keys). CUDA tensors launch
+    csrc/knn.cu's two key kernels and count one launch (`cell` a power of
+    two: `check_cell`); CPU tensors take the plain version."""
+    if pts.device.type == "cpu":
+        return morton_keys_plain(pts, valid, cell)
+    check_cell(cell)
+    if not pts.is_cuda or pts.ndim != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts must be an (n, 3) CUDA tensor, got {tuple(pts.shape)} on "
+                         f"{pts.device}")
+    if valid is not None and (valid.device != pts.device or valid.dtype != torch.bool
+                              or valid.shape != (pts.shape[0],)):
+        raise ValueError(f"valid must be an (n,) bool tensor on {pts.device}")
+    pts = pts.float().contiguous()  # no copy where they already are
+    valid = None if valid is None else valid.contiguous()
+    dev, n = pts.device, pts.shape[0]
+    keys = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return keys
     lib = build()
-    dev = prob.q.device
-    nqp, ndp = prob.q.shape[0], prob.db.shape[0]
-    n_split = min(ndp // db_tile,
-                  max(1, -(-_BLOCKS_PER_SM * _sm_count(dev) // (nqp // _THREADS))))
-    out_d = torch.empty((nqp, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nqp, k), dtype=torch.int32, device=dev)
-    part_d = torch.empty((nqp, n_split, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nqp, n_split, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.vil_knn_sparse_launch(
-            prob.q.data_ptr(), prob.db.data_ptr(), prob.db_valid.data_ptr(),
-            prob.q_lo.data_ptr(), prob.q_hi.data_ptr(), prob.d_lo.data_ptr(),
-            prob.d_hi.data_ptr(), nqp, ndp, k, db_tile, n_split, float(radius) ** 2,
-            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.vil_morton_keys(pts.data_ptr(), None if valid is None else valid.data_ptr(),
+                                  n, float(cell), _scratch(dev, _MORTON_SCRATCH_BYTES).data_ptr(),
+                                  keys.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"vil_knn_sparse_launch failed with cudaError {err} "
-                           f"(nq={nqp}, nd={ndp}, k={k}, db_tile={db_tile})")
-    knn_sparse.launches += 1
-    return out_d, out_i
+        raise RuntimeError(f"vil_morton_keys failed with cudaError {err} (n={n}, cell={cell})")
+    morton_keys.launches += 1
+    return keys
+
+
+morton_keys.launches = 0
+
+
+def morton_sort(pts, valid=None, cell: float = 2.0):
+    """Spatial (Morton) sort permutation (int64, stable; invalid points
+    last): the plain version's (ops/knn.py:morton_sort) signature and
+    permutation. On CUDA the keys are `morton_keys`'s kernels and the sort
+    `torch.argsort(stable=True)`; CPU tensors take the plain version."""
+    if pts.device.type == "cpu":
+        return knn_plain.morton_sort(pts, valid, cell)
+    return torch.argsort(morton_keys(pts, valid, cell), stable=True)
 
 
 def knn_sparse(queries, database, db_valid, k: int = 5, radius: float = 3.0,
@@ -289,11 +386,12 @@ def knn_sparse(queries, database, db_valid, k: int = 5, radius: float = 3.0,
                cell: float = 2.0, q_sorted: bool = False, db_sorted: bool = False):
     """K3: kNN exact for every neighbour within `radius` (farther ones may
     come back missing; callers gate on d2 < radius^2). Semantics of
-    ops/knn.py:knn_sparse, whose Morton sort, tile boxes and finishing step
-    this shares (plain tensor code, as in the reference); the block-skipping
-    search itself is the CUDA kernel. On CUDA q_tile must be 128 (one query
-    per thread) and db_tile a multiple of 128. CPU tensors take the plain
-    version."""
+    ops/knn.py:knn_sparse, equal to it on every row. On CUDA the whole call
+    is csrc/knn.cu's box kernel and search (`sparse_plan`): the tile boxes,
+    the padding and the finishing step are in the kernels; a side that is
+    not `*_sorted` is Morton-sorted first (`morton_sort`) and read through
+    its permutation. q_tile must be 128 (one query a thread) and db_tile a
+    multiple of 128. CPU tensors take the plain version."""
     if queries.device.type == "cpu":
         return knn_sparse_plain(queries, database, db_valid, k=k, radius=radius,
                                 q_tile=q_tile, db_tile=db_tile, cell=cell,
@@ -302,15 +400,30 @@ def knn_sparse(queries, database, db_valid, k: int = 5, radius: float = 3.0,
     if q_tile != _THREADS or db_tile <= 0 or db_tile % _THREADS:
         raise ValueError(f"on CUDA q_tile must be {_THREADS} and db_tile a multiple "
                          f"of {_THREADS}, got {q_tile} and {db_tile}")
-    nq = queries.shape[0]
-    if nq == 0 or database.shape[0] == 0:
-        return (torch.full((nq, k), float("inf"), device=queries.device),
-                torch.zeros((nq, k), dtype=torch.int32, device=queries.device))
-    prob = knn_plain.sparse_prepare(queries, database, db_valid, q_tile, db_tile, cell,
-                                    q_sorted, db_sorted)
-    out_d, out_i = sparse_search_cuda(prob, k, radius, db_tile)
-    knn_sparse.last_call = (nq, database.shape[0], k)
-    return knn_plain.sparse_finish(prob, out_d, out_i)
+    dev = queries.device
+    nq, nd = queries.shape[0], database.shape[0]
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    how = sparse_plan(nq, nd, _sm_count(dev), db_tile)
+    if how.kernels == 0:
+        return out_d, out_i
+    q_perm = None if q_sorted else morton_sort(queries, cell=cell)
+    d_perm = None if db_sorted or nd == 0 else morton_sort(database, db_valid, cell=cell)
+    lib = build()
+    with torch.cuda.device(dev):
+        err = lib.vil_knn_sparse(
+            queries.data_ptr(), None if q_perm is None else q_perm.data_ptr(), nq,
+            database.data_ptr(), db_valid.data_ptr(), None if d_perm is None else d_perm.data_ptr(),
+            nd, k, db_tile, how.n_split, float(radius) ** 2,
+            _scratch(dev, sparse_scratch_bytes(how, k)).data_ptr(),
+            _counters(dev, how.blocks).data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"vil_knn_sparse failed with cudaError {err} "
+                           f"(nq={nq}, nd={nd}, k={k}, db_tile={db_tile}, plan={tuple(how)})")
+    knn_sparse.launches += 1
+    knn_sparse.last_call = (nq, nd, k)
+    return out_d, out_i
 
 
 knn_sparse.launches = 0

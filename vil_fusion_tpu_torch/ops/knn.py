@@ -6,10 +6,10 @@ forms of what vil_fusion_tpu/ops/pallas/knn_pallas.py runs on the TPU: the
 grouped merge (`_knn_kernel_grouped`) and the sparse search
 (`knn_pallas_sparse` / `_sparse_knn_kernel`, with its Morton helpers). These
 are the CPU path of the dispatcher in ops/cuda/knn_cuda.py and the
-references its CUDA kernels are held against; the CUDA main path never
-calls the searches (it shares the Morton sort, the tile boxes and the
-finishing step of the sparse search, which the reference also computes
-outside its kernel).
+references its CUDA kernels are held against; the CUDA main path calls
+none of them (the sparse search's Morton keys, tile boxes, padding and
+finishing step are csrc/knn.cu kernels there, the sort itself
+torch.argsort).
 
 Distance forms (`form=`), both elementwise in float32 in a fixed order that
 csrc/knn.cu repeats, so kernel and plain version give the same bits:
@@ -148,18 +148,27 @@ def _morton_keys(pts, origin, cell: float):
     return _spread3(c[:, 0]) | (_spread3(c[:, 1]) << 1) | (_spread3(c[:, 2]) << 2)
 
 
-def morton_sort(pts, valid=None, cell: float = 2.0):
-    """Spatial (Morton) sort permutation (int64, stable); invalid points
-    sort to the end. Callers may sort once and reuse the order across
-    several searches: rigid motion keeps the tiles compact."""
+def morton_keys(pts, valid=None, cell: float = 2.0):
+    """The keys `morton_sort` sorts by (int32): `_morton_keys` from the
+    least valid point minus 1e-3, and 0x7FFFFFFF for an invalid point
+    (knn_pallas.py:379-391)."""
     p32 = pts.float()
+    if p32.shape[0] == 0:
+        return torch.empty(0, dtype=torch.int32, device=p32.device)
     inf = torch.full_like(p32, float("inf"))
     finite = p32 if valid is None else torch.where(valid[:, None], p32, inf)
     origin = torch.min(finite, dim=0).values - 1e-3
     keys = _morton_keys(p32, origin, cell)
     if valid is not None:
         keys = torch.where(valid, keys, torch.full_like(keys, 0x7FFFFFFF))
-    return torch.argsort(keys, stable=True)
+    return keys
+
+
+def morton_sort(pts, valid=None, cell: float = 2.0):
+    """Spatial (Morton) sort permutation (int64, stable); invalid points
+    sort to the end. Callers may sort once and reuse the order across
+    several searches: rigid motion keeps the tiles compact."""
+    return torch.argsort(morton_keys(pts, valid, cell), stable=True)
 
 
 def _tile_aabb(pts, valid, tile: int):
