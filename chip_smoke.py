@@ -34,7 +34,17 @@ Phases, any failure exits non-zero:
   6. path "front end": vil_front_end (tracker, lidar odometry, extrinsic
      glue, depth association) on 1226 x 370 rendered images + HDL-64 scans,
      3 warm-up + 12 timed frames: features tracked, K2 launched at k=3
-     every frame, lidar depth against the simulator's own raycast.
+     every frame, lidar depth against the simulator's own raycast;
+  7. path "vil": VILFusionPipeline(mode="vil", sync_depth=0), the whole vil
+     frame (tracker, lidar odometry, extrinsic glue, depth association,
+     estimator: IMU preintegration, feature ingest, triangulation, bundle
+     adjustment, marginalization, slide) on the same rig with 200 Hz IMU,
+     oracle initial state, 14 warm-up + 20 timed frames: no restart, the
+     fused estimator step on every steady frame, K1 / K2 launched as the
+     odometry and the depth association plan them each frame, the end
+     error within its bound; then a cold start on tests/test_e2e_loop.py's
+     rig (240 x 320, 32 x 600 scans, LoopTrajectory, no visual loop) that
+     must initialize within its frame cap and never restart.
 Every path checks that its state tensors are on the card, that its kernels
 launched (counts set to 0 just before, read just after), that all poses are
 finite and that the end position is within its bound of the simulator's
@@ -82,6 +92,23 @@ DEPTH_ERR_BOUND_M = 0.15
 # gate is relative to the strongest free corner), so single frames carry as
 # few as 61 tracks while the mean is 114 (first run, PERF.md)
 MIN_LIVE, MIN_TRACKED_MEAN, MIN_TRACKED = 100, 100, 50
+# path vil: warm-up covers the window's filling (the estimator's first fused
+# step is frame K - 1 = 10) and a few steady frames
+VIL_WARMUP, VIL_TIMED = 14, 20
+IMU_RATE = 200.0
+# end-position bound of the vil path: VIL_REF_END_ERR_M is the JAX
+# package's own end error over the same 34 frames on the CPU
+# (tools/jax_cpu_reference.py --mode vil --frames 34, 32 x 900 scans and
+# 4,096 / 8,192-point maps: 0.0402 m before the first bundle adjustment at
+# frame 10, 0.4441 m after it, then growing); the bound is about twice it,
+# as for the other paths (PERF.md)
+VIL_REF_END_ERR_M = 1.9139
+VIL_END_ERR_BOUND_M = 4.0
+# the cold start: frame cap, frames run after initializing, and the JAX
+# package's initialization frame on the CPU
+# (tools/jax_cpu_reference.py --mode coldstart --frames 80)
+COLD_FRAME_CAP, COLD_AFTER_INIT = 80, 5
+COLD_REF_INIT_FRAME = 10
 # main-path shapes: scan geometry, odometry map capacities, ICP submap
 SCAN = dict(n_scan=64, width=1800, fov_up_deg=2.0, fov_down_deg=-24.8, max_range=80.0)
 MAP_CAPS = (16384, 32768)
@@ -186,6 +213,51 @@ def _sequence(n: int, distorted: bool = False):
             pts, val = sim.simulate_lidar_scan(scene, R, p, **SCAN)
         frames.append((t, pts, val, R, p))
     return frames
+
+
+def cold_start_rig(sim, rig_cls):
+    """tests/test_e2e_loop.py's cold-start rig (240 x 320 pinhole, 32-ring
+    scans of 600 columns, hash kNN, the urban block around a 12 m
+    LoopTrajectory) for either package: (rig, odometry overrides, global
+    fusion keywords, trajectory, scene). `sim` and `rig_cls` are the
+    package's simulator module and RigConfig."""
+    import numpy as np
+
+    r_bc = np.array(R_BC)
+    rig = rig_cls(
+        name="loop",
+        camera=dict(model_type="PINHOLE",
+                    projection_parameters=dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0),
+                    distortion_parameters=dict(k1=0.0, k2=0.0, p1=0.0, p2=0.0)),
+        image_height=240, image_width=320,
+        q_ic=sim.R_to_q(r_bc), t_ic=np.zeros(3), q_cl=sim.R_to_q(r_bc.T), t_cl=np.zeros(3),
+        max_cnt=150, min_dist=12, n_scan=32, lidar_fov_up=30.0, lidar_fov_down=-30.0,
+        lidar_min_range=1.0, lidar_max_range=80.0, use_lidar=True, depth_min_incidence=0.02)
+    odom = dict(width=600, edge_map_cap=4096, surf_map_cap=8192, use_hash_knn=True)
+    gf_kw = dict(keyframe_dist=1.5, node_capacity=512, optimize_every=8)
+    return rig, odom, gf_kw, sim.LoopTrajectory(radius=12.0, period=35.0), \
+        sim.urban_block_scene(12.0)
+
+
+def cold_start_frame(sim, traj, scene, i):
+    """Frame i of the cold-start run: (t, IMU (ts, acc, gyr) since the last
+    frame with white noise and constant biases or None, float image, scan
+    points, validity)."""
+    import numpy as np
+
+    t = 1.0 + i * FRAME_DT
+    imu = None
+    if i:
+        noise = type("Noise", (), dict(acc_n=0.08, gyr_n=0.004))()
+        imu = sim.simulate_imu(traj, t - FRAME_DT, t, IMU_RATE, noise=noise,
+                               bias_a=np.array([0.05, -0.03, 0.02]),
+                               bias_g=np.array([0.002, -0.001, 0.0015]), seed=i)
+    R, p = traj.rotation(t), traj.position(t) + np.array([0.0, 0.0, 1.5])
+    img = sim.render_camera_image(scene, R @ np.array(R_BC), p, 250.0, 250.0, 160.0, 120.0,
+                                  240, 320)
+    pts, val = sim.simulate_lidar_scan(scene, R, p, n_scan=32, width=600, range_noise=0.01,
+                                       seed=i)
+    return t, imu, img, pts, val
 
 
 def _images(frames):
@@ -849,6 +921,137 @@ def _front_end_path(frames, images, dev, card):
     return counts
 
 
+def _vil_path(frames, images, dev, card):
+    """Phase 7: VILFusionPipeline(mode="vil", sync_depth=0) over `frames` +
+    `images` with 200 Hz IMU from the oracle initial state. Returns the
+    kernels' launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from vil_fusion_tpu_torch.models import window
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+    from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
+
+    traj = sim.Trajectory(sim.TrajectoryConfig(speed=8.0))
+    imus = [None] + [sim.simulate_imu(traj, fr[0] - FRAME_DT, fr[0], IMU_RATE)
+                     for fr in frames[1:]]
+    pipe = VILFusionPipeline(_rig(), mode="vil", sync_depth=0, scan_quant=SCAN_QUANT, device=dev)
+    q0, p0 = traj.pose(frames[0][0])
+    pipe.estimator.set_initial_state(p=p0 + np.array([0.0, 0.0, 1.5]), q=q0,
+                                     v=traj.velocity(frames[0][0]))
+    _reset(kc)
+    keys, per_frame = [], []
+    t0 = None
+    for i, (fr, img, imu) in enumerate(zip(frames, images, imus)):
+        if i == VIL_WARMUP:
+            torch.cuda.synchronize()
+            GLOBAL_TIMERS.reset()
+            t0 = time.perf_counter()
+        k1, k2 = _counts(kc)["K1"], _counts(kc)["K2"]
+        fused = pipe.estimator.fused_steps
+        if imu is not None:
+            pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+        pipe.push_scan(fr[0], fr[1], fr[2])
+        pipe.push_image(fr[0], img)
+        c = _counts(kc)
+        per_frame.append((c["K1"] - k1, c["K2"] - k2))
+        # K1: the odometry's two association passes (edge, surf) a frame,
+        # both passes twice on the cold frames 1 and 2, none on frame 0;
+        # K2: one depth association a frame
+        want = (0 if i == 0 else 4 if i < 3 else 2, 1)
+        if per_frame[-1] != want:
+            raise AssertionError(f"vil frame {i}: K1 / K2 launches {per_frame[-1]}, want {want}")
+        if pipe.restarts:
+            raise AssertionError(f"vil frame {i}: restart {pipe.restart_log}")
+        if i >= window.K - 1:
+            if pipe.estimator.fused_steps != fused + 1:
+                raise AssertionError(f"vil frame {i}: the steady frame skipped fused_full_step")
+            keys.append(pipe.estimator.last_is_key)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts(kc)
+    est = pipe.estimator
+    _on_card({**{f"window.{k}": v for k, v in est.window._asdict().items()},
+              **{f"feats.{k}": v for k, v in est.feats._asdict().items()},
+              **{f"pre.{k}": v for k, v in est.pre._asdict().items()},
+              "prior.J": est.prior.J, **{f"tracker.{k}": v for k, v in
+                                         pipe.tracker_state._asdict().items()}}, dev)
+    vio_p = np.stack(pipe.outputs.vio_p)
+    if vio_p.shape != (len(frames), 3) or not (np.isfinite(vio_p).all()
+                                              and np.isfinite(np.stack(pipe.outputs.vio_q)).all()):
+        raise AssertionError(f"vil: outputs of shape {vio_p.shape} or not finite")
+    errs = np.linalg.norm(vio_p - np.stack([fr[4] for fr in frames]), axis=1)
+    lidar_gt = np.stack([frames[0][3].T @ (fr[4] - frames[0][4]) for fr in frames])
+    lidar_errs = np.linalg.norm(np.stack(pipe.outputs.lidar_p) - lidar_gt, axis=1)
+    stages = GLOBAL_TIMERS.summary()
+    print(f"  vil: {VIL_TIMED / dt:.3f} frames/s over {VIL_TIMED} frames after {VIL_WARMUP} "
+          f"warm-up frames [{card}]", flush=True)
+    print("  vil: host ms per timed frame (GLOBAL_TIMERS mean / p50): " + ", ".join(
+        f"{k} {stages[k]['mean_ms']:.2f} / {stages[k]['p50_ms']:.2f}"
+        for k in ("tracker", "lidar_odometry", "depth_association", "estimator", "global_fusion")
+        if k in stages), flush=True)
+    print(f"  vil: fused steps {est.fused_steps} of {len(frames) - (window.K - 1)} steady frames, "
+          f"keyframes {sum(keys)}, non-keyframes {len(keys) - sum(keys)}, restarts "
+          f"{pipe.restarts}", flush=True)
+    print(f"  vil: K1 / K2 launches per frame {per_frame} (as planned)", flush=True)
+    print(f"  vil: end-position error {errs[-1]:.4f} m (bound {VIL_END_ERR_BOUND_M} m; JAX "
+          f"package on the CPU at 32 x 900 scans: {VIL_REF_END_ERR_M} m), max {errs.max():.4f} m "
+          f"over {np.linalg.norm(frames[-1][4] - frames[0][4]):.1f} m of travel; per frame "
+          f"{np.round(errs, 4).tolist()}; lidar odometry end error {lidar_errs[-1]:.4f} m",
+          flush=True)
+    if not errs[-1] < VIL_END_ERR_BOUND_M:
+        raise AssertionError(f"vil: end-position error {errs[-1]:.4f} m >= "
+                             f"{VIL_END_ERR_BOUND_M} m")
+    return counts
+
+
+def _cold_start(dev):
+    """Phase 7, second run: the cold start on tests/test_e2e_loop.py's rig
+    until the estimator initializes (at most COLD_FRAME_CAP frames), then
+    COLD_AFTER_INIT frames more; no restart. Returns launch counts."""
+    import numpy as np
+    import torch
+
+    from vil_fusion_tpu_torch.models import global_fusion as gf
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+
+    rig, odom, gf_kw, traj, scene = cold_start_rig(sim, RigConfig)
+    pipe = VILFusionPipeline(rig, mode="vil", sync_depth=0, odom_overrides=odom,
+                             gf_cfg=gf.GlobalFusionConfig(**gf_kw), device=dev)
+    _reset(kc)
+    init = None
+    t0 = time.perf_counter()
+    for i in range(COLD_FRAME_CAP):
+        t, imu, img, pts, val = cold_start_frame(sim, traj, scene, i)
+        if imu is not None:
+            pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+        pipe.push_scan(t, pts, val)
+        pipe.push_image(t, img)
+        if pipe.restarts:
+            raise AssertionError(f"cold start frame {i}: restart {pipe.restart_log}")
+        if pipe.estimator.initialized and init is None:
+            init = i
+        if init is not None and i >= init + COLD_AFTER_INIT:
+            break
+    torch.cuda.synchronize()
+    if init is None:
+        raise AssertionError(f"cold start: not initialized within {COLD_FRAME_CAP} frames")
+    p = np.stack(pipe.outputs.vio_p)
+    if not np.isfinite(p).all():
+        raise AssertionError("cold start: non-finite poses")
+    print(f"  cold start: initialized at frame {init} (JAX package on the CPU: frame "
+          f"{COLD_REF_INIT_FRAME}; the RANSAC draws from another generator), attempts refused "
+          f"before it {pipe.estimator.init_failures}, {i + 1} frames in "
+          f"{time.perf_counter() - t0:.1f} s, restarts {pipe.restarts}, fused steps "
+          f"{pipe.estimator.fused_steps}", flush=True)
+    return _counts(kc)
+
+
 def main() -> int:
     import torch
 
@@ -935,13 +1138,20 @@ def main() -> int:
     # phase 6: the vil frame's front end
     print("path front end:", flush=True)
     n = FRONT_WARMUP + FRONT_TIMED
+    n_vil = VIL_WARMUP + VIL_TIMED
     t0 = time.perf_counter()
-    images = _images(frames[:n])
-    print(f"data: {n} rendered {IMG_W} x {IMG_H} images in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    add("front end", _front_end_path(frames[:n], images, dev, card))
+    images = _images(frames[:max(n, n_vil)])
+    print(f"data: {len(images)} rendered {IMG_W} x {IMG_H} images in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    add("front end", _front_end_path(frames[:n], images[:n], dev, card))
 
-    on_path = {"K1": ("dense", "front end"), "K2": ("dense", "sparse", "front end"),
+    # phase 7: the whole vil frame, then the cold start
+    print("path vil:", flush=True)
+    add("vil", _vil_path(frames[:n_vil], images[:n_vil], dev, card))
+    add("cold start", _cold_start(dev))
+
+    on_path = {"K1": ("dense", "front end", "vil"),
+               "K2": ("dense", "sparse", "front end", "vil", "cold start"),
                "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",),
                "Morton keys": ("sparse",)}
     for kname, rec in records.items():

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the K1/K2/K3 kernels (both distance forms of K1
 and K2) and the Morton-key kernels against their plain versions at the main paths' shapes, the
-dispatcher's routing on the card, and the LiDAR-only slice and the vil
-front end on the card against the same code on the CPU.
+dispatcher's routing on the card, the LiDAR-only slice, the vil front end and
+one fused estimator step on the card against the same code on the CPU, and
+the Schur solve's Cholesky fallback on the card.
 
 Imports torch and numpy only (a CUDA machine need not have jax). Every
 test needs a card and skips without one. Where jax is not installed, skip
@@ -395,3 +396,98 @@ def test_cuda_front_end_matches_cpu(cuda_device):
         np.testing.assert_allclose(b["uv"][v], a["uv"][v], atol=0.05)
         np.testing.assert_allclose(b["lidar_p"], a["lidar_p"], atol=5e-3)
         assert (np.sign(b["depth"][v]) == np.sign(a["depth"][v])).mean() >= 0.95
+
+
+def _estimator_bundles(n_frames, seed=0):
+    """process_frame inputs along sim.Trajectory (port-only: 200 Hz IMU,
+    40 budgeted landmark observations a frame, lidar depth on 60% of them,
+    exact lidar relative poses) and the initial ground-truth state."""
+    from vil_fusion_tpu_torch.ops import lie
+    from vil_fusion_tpu_torch.runtime import sim
+
+    r_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    rng = np.random.default_rng(seed)
+    traj = sim.Trajectory()
+    world = sim.LandmarkWorld(n=400, seed=seed)
+    out, prev = [], set()
+    for i in range(n_frames):
+        t = 1.0 + 0.1 * i
+        acc = gyr = np.zeros((0, 3))
+        dts = np.zeros((0,))
+        if i:
+            ts_i, acc, gyr = sim.simulate_imu(traj, t - 0.1, t, 200.0)
+            dts = np.diff(ts_i)
+        ids, xy, z = sim.project_landmarks(world, traj.rotation(t), traj.position(t), R_bc=r_bc)
+        order = [k for k, i_ in enumerate(ids) if i_ in prev] + \
+            [k for k, i_ in enumerate(ids) if i_ not in prev]
+        keep = np.zeros(len(ids), bool)
+        keep[order[:40]] = True
+        ids, xy, z = ids[keep], xy[keep], z[keep]
+        prev = set(ids.tolist())
+        kw = dict(obs_depth=np.where(rng.random(len(ids)) < 0.6, z, 0.0))
+        if i:
+            (qa, pa), (qb, pb) = traj.pose(t - 0.1), traj.pose(t)
+            f = dict(dtype=torch.float32)
+            qr, pr = lie.pose_between((torch.tensor(qa, **f), torch.tensor(pa, **f)),
+                                      (torch.tensor(qb, **f), torch.tensor(pb, **f)))
+            kw.update(lidar_q_rel=qr.numpy(), lidar_p_rel=pr.numpy())
+        out.append(((acc, gyr, dts, ids, xy), kw))
+    q0, p0 = traj.pose(1.0)
+    return out, (p0, q0, traj.velocity(1.0)), sim.R_to_q(r_bc)
+
+
+def test_cuda_schur_solve_cholesky_fallback(cuda_device):
+    """schur_solve on the card: on a damped SPD system it agrees with the CPU
+    (rtol 1e-3 of the step's largest entry: f32 factorizations of another
+    library), and on a system whose pose block is not positive definite the
+    Cholesky failure is caught without a host read or an exception and the
+    LU step of the regularized system is taken, finite and as on the CPU."""
+    from vil_fusion_tpu_torch.models import ba
+
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(300, ba.D)).astype(np.float32)
+    H = A.T @ A
+    Hpd = rng.normal(0, 0.1, (ba.D, 40)).astype(np.float32)
+    Hd = rng.uniform(1.0, 5.0, 40).astype(np.float32)
+    b = rng.normal(size=ba.D).astype(np.float32)
+    bd = rng.normal(size=40).astype(np.float32)
+    bad = H.copy()
+    bad[20, 20] = -50.0 * np.abs(np.diag(H)).max()
+    for Hm in (H, bad):
+        outs = []
+        for dev in ("cpu", cuda_device):
+            s = ba.System(*(torch.from_numpy(x).to(dev) for x in (Hm, b, Hpd, Hd, bd)),
+                          torch.zeros((), device=dev))
+            d, dd = ba.schur_solve(s, torch.tensor(1e-4, device=dev), ba.BAConfig())
+            outs.append((d.cpu().numpy(), dd.cpu().numpy()))
+        for a, c in zip(*outs):
+            assert np.isfinite(c).all()
+            np.testing.assert_allclose(c, a, atol=1e-3 * np.abs(a).max())
+
+
+def test_cuda_fused_step_matches_cpu(cuda_device):
+    """One estimator.fused_full_step on the card against the same step on
+    the CPU from the same steady state (an oracle-initialized estimator run
+    on the CPU over K + 2 frames, carried with utils/state_io): pose within
+    1e-3 m, the same keyframe decision, no failure; every state on the
+    card."""
+    from vil_fusion_tpu_torch.models import estimator as est_mod
+    from vil_fusion_tpu_torch.utils import state_io
+
+    bundles, (p0, q0, v0), qic = _estimator_bundles(est_mod.K + 3)
+    cfg = est_mod.EstimatorConfig(f_cap=48, obs_cap=64)
+    cpu = est_mod.VILEstimator(cfg, device="cpu")
+    cpu.set_extrinsics(qic=qic, tic=np.zeros(3))
+    cpu.set_initial_state(p=p0, q=q0, v=v0)
+    for args, kw in bundles[:-1]:
+        cpu.process_frame(*args, **kw)
+    gpu = est_mod.VILEstimator(cfg, device=cuda_device)
+    state_io.estimator_load(gpu, state_io.estimator_to_numpy(cpu))
+    args, kw = bundles[-1]
+    out_c = cpu.process_frame(*args, **kw)
+    out_g = gpu.process_frame(*args, **kw)
+    assert gpu.fused_steps == 1 and gpu.last_is_key == cpu.last_is_key
+    assert not gpu.failed and not cpu.failed
+    np.testing.assert_allclose(out_g[0], out_c[0], atol=1e-3)
+    np.testing.assert_allclose(out_g[1], out_c[1], atol=1e-3)
+    assert all(x.is_cuda for x in list(gpu.window) + list(gpu.feats) + list(gpu.pre))

@@ -74,8 +74,8 @@ def frames():
 def test_front_end_config_matches_reference():
     """front_end_config derives the same tracker and lidar configurations,
     camera model and composed extrinsics (atol 1e-6) as the JAX pipeline's
-    constructor; the pipeline class still refuses the modes that need the
-    estimator."""
+    constructor, and the port's pipeline in mode "vil" derives the
+    reference's estimator configuration from the rig."""
     jp = JPipeline(JRig(**RIG_KW), mode="vil", f_cap=64, odom_overrides=ODOM, scan_quant=QUANT)
     fe = tpipe.front_end_config(TRig(**RIG_KW), f_cap=64, odom_overrides=ODOM, scan_quant=QUANT,
                                 device="cpu")
@@ -90,9 +90,11 @@ def test_front_end_config_matches_reference():
                                    atol=1e-6, err_msg=name)
     assert fe.tsh_scale == pytest.approx(0.02 / H) and fe.min_incidence == pytest.approx(0.1)
     assert tpipe.frame_seed(1.2345678) == 1234
-    for mode in ("vil", "vio", "mask"):
-        with pytest.raises(NotImplementedError, match="estimator"):
-            tpipe.VILFusionPipeline(TRig(**RIG_KW), mode=mode, device="cpu")
+    tp = tpipe.VILFusionPipeline(TRig(**RIG_KW), mode="vil", f_cap=64, odom_overrides=ODOM,
+                                 scan_quant=QUANT, device="cpu")
+    for k, v in jp.est_cfg._asdict().items():
+        got = getattr(tp.est_cfg, k)
+        assert (got._asdict() == v._asdict()) if hasattr(v, "_asdict") else got == v, k
 
 
 def test_vil_front_end_three_frames(frames):

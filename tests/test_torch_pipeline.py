@@ -145,13 +145,19 @@ def test_scan_dequantization_exact():
 
 
 def test_pipeline_modes_and_imu(tmp_path):
-    """Only mode="lidar" is ported; push_imu / push_imu_batch only buffer
-    (LiDAR-only odometry has no IMU-rate pose); load_rig reads a rig YAML
-    with the port's own reader."""
+    """Modes "vil", "vio" and "lidar" build; only mode="mask" and
+    sync_depth > 0 raise (naming ROADMAP.md); push_imu / push_imu_batch
+    buffer, and return no IMU-rate pose before the estimator is solved (nor
+    ever in LiDAR-only odometry); load_rig reads a rig YAML with the port's
+    own reader."""
     rig = TRig(**RIG_KW)
-    for mode in ("vil", "vio", "mask"):
+    for kw in (dict(mode="mask"), dict(mode="vil", sync_depth=1), dict(mode="vio", sync_depth=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.VILFusionPipeline(rig, mode=mode, device="cpu")
+            tpipe.VILFusionPipeline(rig, device="cpu", **kw)
+    for mode in ("vil", "vio"):
+        p = tpipe.VILFusionPipeline(rig, mode=mode, device="cpu")
+        assert p.estimator.cfg.ba.use_lidar == (mode == "vil") and (p.fusion is None) == (mode == "vio")
+        assert p.push_imu(0.0, np.zeros(3), np.zeros(3)) is None and len(p.imu_buf) == 1
     pipe = tpipe.VILFusionPipeline(rig, mode="lidar", odom_overrides=ODOM,
                                    gf_cfg=tgf.GlobalFusionConfig(**GF), device="cpu")
     assert pipe.push_imu(0.0, np.zeros(3), np.zeros(3)) is None

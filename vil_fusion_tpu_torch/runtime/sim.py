@@ -8,10 +8,10 @@ all with known ground truth — so every estimator stage can be golden-tested.
 
 Host-side numpy (float64) on purpose: this is test scaffolding, not the
 compute path. This is the numpy part of vil_fusion_tpu/runtime/sim.py,
-carried over unchanged (LiDAR scene, trajectories, the scan simulators and
-the textured camera render) so that the port needs no jax; the IMU and
-feature-track simulators and the device raycaster come with the slices that
-use them.
+carried over unchanged (LiDAR scenes, trajectories, the IMU, landmark and
+scan simulators and the textured camera render) so that the port needs no
+jax. The reference's device raycaster (JaxRaycast) is not carried: the
+numpy raycast renders the same scenes.
 """
 from __future__ import annotations
 
@@ -158,6 +158,102 @@ class LoopTrajectory(_TrajectoryBase):
         yaw = np.arctan2(np.sin(th), np.cos(th))  # tangent of the circle
         return _ypr_to_R(yaw, 0.015 * np.sin(2.1 * np.asarray(t, np.float64)),
                          0.012 * np.sin(1.7 * np.asarray(t, np.float64)))
+
+
+def urban_block_scene(radius: float = 12.0,
+                      pillar_step_deg: float = 30.0,
+                      box_step_deg: float = 45.0) -> "RaycastScene":
+    """Structured world around a circular circuit of the given radius
+    (center (0, radius)): pillar rings inside and outside the path, boxes at
+    varied bearings (x- and y-facing planes for odometry observability),
+    bounding walls and ground. The 'urban block' replay world.
+
+    For KITTI-scale circuits (radius ~100 m, >=1 km laps) lower the angular
+    steps so structure density along the path stays urban-like
+    (pillar_step_deg ~ 4 keeps inter-pillar spacing ~7 m at r=100)."""
+    scene = RaycastScene.__new__(RaycastScene)
+    c = np.array([0.0, radius])
+    scene.wall_y = 2 * radius + 16.0
+    scene.wall_h = 6.0
+    scene.x_lo, scene.x_hi = -(radius + 28.0), radius + 28.0
+    scene.pillar_r = 0.3
+    scene.pillar_h = 5.0
+    ang = np.deg2rad(np.arange(0, 360, pillar_step_deg))
+    inner = c + (radius - 6.0) * np.stack([np.sin(ang), -np.cos(ang)], -1)
+    outer = c + (radius + 7.0) * np.stack([np.sin(ang + 0.26), -np.cos(ang + 0.26)], -1)
+    scene.pillars = np.concatenate([inner, outer], axis=0)
+    angb = np.deg2rad(np.arange(15, 360, box_step_deg))
+    bc = c + (radius + 9.0) * np.stack([np.sin(angb), -np.cos(angb)], -1)
+    bi = c + (radius - 8.0) * np.stack([np.sin(angb + 0.4), -np.cos(angb + 0.4)], -1)
+    boxes = [[x, y, 1.2, 0.9, 2.5] for x, y in bc] + \
+            [[x, y, 0.9, 1.3, 3.0] for x, y in bi]
+    scene.boxes = np.asarray(boxes)
+    return scene
+
+
+def simulate_imu(traj, t0: float, t1: float, rate: float = 200.0,
+                 noise=None, bias_a=None, bias_g=None, seed: int = 0):
+    """Sample IMU between t0 and t1 at `rate` Hz (inclusive endpoints).
+
+    Returns (ts, acc (N,3), gyr (N,3)); optionally adds white noise and
+    constant biases (ImuNoise-style densities scaled by sqrt(rate)).
+    """
+    n = int(round((t1 - t0) * rate))
+    ts = t0 + np.arange(n + 1) / rate
+    acc = np.zeros((n + 1, 3))
+    gyr = np.zeros((n + 1, 3))
+    for i, t in enumerate(ts):
+        acc[i], gyr[i] = traj.imu_sample(t)
+    if bias_a is not None:
+        acc += bias_a
+    if bias_g is not None:
+        gyr += bias_g
+    if noise is not None:
+        rng = np.random.default_rng(seed)
+        acc += rng.normal(0, noise.acc_n * np.sqrt(rate), acc.shape)
+        gyr += rng.normal(0, noise.gyr_n * np.sqrt(rate), gyr.shape)
+    return ts, acc, gyr
+
+
+@dataclass
+class LandmarkWorld:
+    """Random 3D landmarks in a corridor around the trajectory, for camera sim."""
+
+    n: int = 500
+    x_range: tuple = (-5.0, 120.0)
+    y_range: tuple = (-12.0, 12.0)
+    z_range: tuple = (-4.0, 8.0)
+    seed: int = 0
+    points: np.ndarray = field(init=False)
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.points = np.stack(
+            [
+                rng.uniform(*self.x_range, self.n),
+                rng.uniform(*self.y_range, self.n),
+                rng.uniform(*self.z_range, self.n),
+            ],
+            axis=-1,
+        )
+
+
+def project_landmarks(world: LandmarkWorld, R_wb, p_wb, R_bc=np.eye(3), p_bc=np.zeros(3),
+                      fov_deg: float = 90.0, min_depth: float = 0.5, max_depth: float = 80.0):
+    """Project landmarks into a normalized-plane camera at body pose (R_wb, p_wb).
+
+    Returns (ids, xy_normalized (M,2), depth (M,)). Camera frame: z forward.
+    """
+    R_wc = R_wb @ R_bc
+    p_wc = R_wb @ p_bc + p_wb
+    pc = (world.points - p_wc) @ R_wc  # (N, 3) in camera frame
+    z = pc[:, 2]
+    half_tan = np.tan(np.deg2rad(fov_deg) / 2)
+    valid = (z > min_depth) & (z < max_depth)
+    xy = pc[:, :2] / np.where(valid, z, 1.0)[:, None]
+    valid &= (np.abs(xy[:, 0]) < half_tan) & (np.abs(xy[:, 1]) < half_tan)
+    ids = np.nonzero(valid)[0]
+    return ids, xy[valid], z[valid]
 
 
 class RaycastScene:

@@ -2,8 +2,10 @@
 
 The system has no learned weights: its odometry maps, pose graph,
 ScanContext database and keyframe cloud store are what two runs have to
-agree on (and, with the visual front end, the tracker's slot store and the
-camera parameters). These helpers turn state given as numpy arrays (the JAX package's
+agree on (and, with the visual front end and the estimator, the tracker's
+slot store, the camera parameters and the estimator's window, feature
+store, preintegrated segments, lidar constraints and marginal prior).
+These helpers turn state given as numpy arrays (the JAX package's
 NamedTuples convert with np.asarray, so no jax import is needed here) into
 the port's tensors on a given device, and back.
 """
@@ -14,8 +16,12 @@ import torch
 
 from vil_fusion_tpu_torch.models import cameras
 from vil_fusion_tpu_torch.models import global_fusion as gf
+from vil_fusion_tpu_torch.models.factors import MargPrior
 from vil_fusion_tpu_torch.models.posegraph import PoseGraph
 from vil_fusion_tpu_torch.models.scancontext import ScanContextDB
+from vil_fusion_tpu_torch.models.window import (
+    FeatureStore, LidarConstraints, StackedPreint, WindowState,
+)
 
 
 def _np(v):
@@ -26,18 +32,51 @@ def _np(v):
 
 
 def to_numpy(state) -> dict:
-    """NamedTuple of arrays (numpy, jax or torch) -> {field: numpy array}."""
-    return {k: _np(v) for k, v in state._asdict().items()}
+    """NamedTuple of arrays (numpy, jax or torch) -> {field: numpy array};
+    a nested NamedTuple (the marginalization prior's `lin`) becomes a
+    nested dict."""
+    return {k: to_numpy(v) if hasattr(v, "_asdict") else _np(v)
+            for k, v in state._asdict().items()}
 
 
 def to_torch(cls, arrays, device="cuda"):
     """{field: array} (or a NamedTuple of arrays) -> cls of tensors on
     `device`; dtypes are kept (float32, int32, bool). E.g.
     `to_torch(lidar_odometry.MapState, to_numpy(jax_state))`, or
-    `to_torch(tracker.TrackerState, to_numpy(jax_tracker_state))`."""
+    `to_torch(tracker.TrackerState, to_numpy(jax_tracker_state))`. The
+    estimator's states: `to_torch(window.WindowState, ...)`, FeatureStore,
+    StackedPreint, LidarConstraints, and factors.MargPrior, whose `lin` is
+    a WindowState."""
     if hasattr(arrays, "_asdict"):
-        arrays = arrays._asdict()
-    return cls(**{k: torch.from_numpy(np.array(arrays[k])).to(device) for k in cls._fields})
+        arrays = to_numpy(arrays)
+    nested = _NESTED.get(cls.__name__, {})
+    return cls(**{k: (to_torch(nested[k], arrays[k], device) if k in nested
+                      else torch.from_numpy(np.array(arrays[k])).to(device))
+                  for k in cls._fields})
+
+
+_NESTED = {"MargPrior": {"lin": WindowState}}
+_ESTIMATOR_STATES = (("window", WindowState), ("feats", FeatureStore),
+                     ("pre", StackedPreint), ("lidar", LidarConstraints),
+                     ("prior", MargPrior))
+
+
+def estimator_to_numpy(est) -> dict:
+    """The five state NamedTuples of a VILEstimator (either package's) plus
+    its host counters, as numpy arrays and plain values."""
+    out = {name: to_numpy(getattr(est, name)) for name, _ in _ESTIMATOR_STATES}
+    out.update(frame_count=int(est.frame_count), initialized=bool(est.initialized))
+    return out
+
+
+def estimator_load(est, arrays: dict):
+    """Overwrite a port VILEstimator's states and counters with `arrays`
+    (as produced by estimator_to_numpy), on the estimator's device."""
+    for name, cls in _ESTIMATOR_STATES:
+        setattr(est, name, to_torch(cls, arrays[name], est.device))
+    est.frame_count = arrays["frame_count"]
+    est.initialized = arrays["initialized"]
+    return est
 
 
 def camera_to_torch(cam):

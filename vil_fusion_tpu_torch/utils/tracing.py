@@ -10,8 +10,10 @@ Percentiles exist because first-call costs (the kernels' build at first use,
 allocator warm-up) land inside whatever timer wraps them: a mean over a
 replay is polluted by them and decomposes nothing, while p50/p90 give the
 steady-state cost. Samples are kept in a bounded
-reservoir (`MAX_SAMPLES`, keep-first + wraparound-overwrite) so a million-
-frame replay cannot grow memory unboundedly.
+reservoir (`MAX_SAMPLES`, keep-first, then overwrite the oldest) so a
+million-frame replay cannot grow memory unboundedly. (The reference writes
+sample n to slot n % MAX_SAMPLES after counting it, which overwrites slot 1
+first and keeps the very first sample a whole extra cycle.)
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import contextlib
 import json
 import time
 from collections import defaultdict
+
+import torch
 
 MAX_SAMPLES = 8192
 
@@ -30,9 +34,13 @@ class StageTimers:
 
     @contextlib.contextmanager
     def timed(self, name: str):
+        """Time the block on the host clock; under torch.profiler the block is
+        also a range of that name, so a trace can count the kernels each
+        stage launches (tools/profile_port.py)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with torch.profiler.record_function(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             s = self.stats[name]
@@ -41,8 +49,10 @@ class StageTimers:
             s["max"] = max(s["max"], dt)
             if len(s["samples"]) < MAX_SAMPLES:
                 s["samples"].append(dt)
-            else:  # overwrite cyclically; early compile samples age out
-                s["samples"][s["n"] % MAX_SAMPLES] = dt
+            else:  # overwrite cyclically, oldest first: sample n (1-based)
+                # goes to slot (n - 1) % MAX_SAMPLES, so the first samples
+                # (the kernels' build at first use) age out first
+                s["samples"][(s["n"] - 1) % MAX_SAMPLES] = dt
 
     def summary(self) -> dict:
         out = {}
