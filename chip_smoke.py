@@ -12,7 +12,8 @@ Phases, any failure exits non-zero:
      K1 (grouped kNN) and K2 (exact kNN) in both distance forms on
      simulator-derived maps and random clouds (edge, surf, ICP shapes), K2
      at the depth-association shape (192 rays x 115,200 sphere points,
-     k=3), K1 and K2 in both forms at few-query and ragged shapes (1-513
+     k=3) and at the visual loop's densification shape (384 rays x 19,200),
+     K1 and K2 in both forms at few-query and ragged shapes (1-513
      queries, 130-115,200 points, k = 1, 3, 8), each record with the kernels
      a call launches as the library counts them at its launch sites (1, or
      2 where the database is split and merged; held against the plan), K3 (sparse Morton kNN) at edge 2048 x 65,536 and surf
@@ -44,7 +45,24 @@ Phases, any failure exits non-zero:
      odometry and the depth association plan them each frame, the end
      error within its bound; then a cold start on tests/test_e2e_loop.py's
      rig (240 x 320, 32 x 600 scans, LoopTrajectory, no visual loop) that
-     must initialize within its frame cap and never restart.
+     must initialize within its frame cap and never restart;
+  8. path "deferred": phase 7's frames at sync_depth=2 (the bench's
+     deployment configuration, with scan_quant=0.0025): every steady frame
+     issued and completed two frames later, no restart, K1 / K2 a frame and
+     the end error as in phase 7; frames/s at sync_depth 0 and 2 and the
+     distance between the two trajectories are printed;
+  9. path "loop": tests/test_e2e_loop.py's lap, 390 frames of the cold-start
+     rig with the visual loop on its worker thread and sync_depth=2: that
+     test's asserts (initialized, no restart, >= 380 outputs, a ScanContext
+     and a visual loop, the ATE of the global fusion below the VIO's and
+     0.5 m, the rebuilt loop path no worse than 1.05 x the VIO, the VIO error
+     down after the relocalization), no worker error, and K2 launched at
+     the densification shape (384 extra corners x the 19,200-point scan);
+  10. path "mask": mode "mask" on tests/test_pipeline.py:263's sequence with
+     a moving textured object and its mask: at most 2 tracked features in
+     the object's core on any frame, no restart, error < 0.5 m.
+The numpy simulator's frames are made in a pool of processes (the scans
+while the kernels build, the lap's frames ahead of phases 7 and 9).
 Every path checks that its state tensors are on the card, that its kernels
 launched (counts set to 0 just before, read just after), that all poses are
 finite and that the end position is within its bound of the simulator's
@@ -53,8 +71,11 @@ last line is {"ok": true, "device": {...}}. Imports nothing of jax.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import json
+import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -109,6 +130,18 @@ VIL_END_ERR_BOUND_M = 4.0
 # (tools/jax_cpu_reference.py --mode coldstart --frames 80)
 COLD_FRAME_CAP, COLD_AFTER_INIT = 80, 5
 COLD_REF_INIT_FRAME = 10
+# phase 9: tests/test_e2e_loop.py's lap (one revisit: the loop trajectory's
+# period is 350 frames) and its visual-loop database; LOOP_REF the JAX
+# package's own numbers on the CPU (tools/jax_cpu_reference.py --mode e2eloop)
+LOOP_FRAMES = 390
+LOOP_VL = dict(capacity=512, keyframe_gap=0.75)
+LOOP_EXTRA_CAP = 384  # VisualLoopConfig.extra_cap: the densification's queries
+LOOP_REF = dict(init_frame=10, sc_loops=3, visual_loops=4, loop_frame=363, ate_vio=2.0593,
+                ate_fs=0.1191, ate_loop=1.3958)
+# phase 10: tests/test_pipeline.py:263's mask run; MASK_REF the JAX
+# package's (tools/jax_cpu_reference.py --mode mask)
+MASK_FRAMES = 16
+MASK_REF = dict(max_err_m=0.1018)
 # main-path shapes: scan geometry, odometry map capacities, ICP submap
 SCAN = dict(n_scan=64, width=1800, fov_up_deg=2.0, fov_down_deg=-24.8, max_range=80.0)
 MAP_CAPS = (16384, 32768)
@@ -191,28 +224,45 @@ def _rig():
         lidar_max_range=80.0, use_lidar=True)
 
 
-def _sequence(n: int, distorted: bool = False):
-    """n HDL-64 scans at 10 Hz along Trajectory(speed=8.0), sensor 1.5 m up:
-    [(t, points (115200, 3) f32, valid, R_wb, p_wb)]; `distorted` sweeps each
-    scan over its frame period (rolling shutter, end-of-scan pose)."""
+@functools.lru_cache(maxsize=None)
+def _kitti_world():
+    """The KITTI-rig paths' scene and Trajectory(speed=8.0), once a process."""
+    from vil_fusion_tpu_torch.runtime import sim
+
+    return sim.RaycastScene(), sim.Trajectory(sim.TrajectoryConfig(speed=8.0))
+
+
+def _kitti_pose(i: int):
+    """(R_wb, p_wb) of frame i: Trajectory(speed=8.0) at 10 Hz, sensor 1.5 m up."""
+    import numpy as np
+
+    traj = _kitti_world()[1]
+    t = 1.0 + i * FRAME_DT
+    return traj.rotation(t), traj.position(t) + np.array([0.0, 0.0, 1.5])
+
+
+def _scan_frame(i: int, distorted: bool = False):
+    """Frame i of _sequence: (t, points (115200, 3) f32, valid, R_wb, p_wb)."""
     import numpy as np
 
     from vil_fusion_tpu_torch.runtime import sim
 
-    scene = sim.RaycastScene()
-    traj = sim.Trajectory(sim.TrajectoryConfig(speed=8.0))
-    off = np.array([0.0, 0.0, 1.5])
-    frames = []
-    for i in range(n):
-        t = 1.0 + i * FRAME_DT
-        R = traj.rotation(t)
-        p = traj.position(t) + off
-        if distorted:
-            pts, val = sim.simulate_lidar_scan_distorted(scene, traj, t, FRAME_DT, off, **SCAN)
-        else:
-            pts, val = sim.simulate_lidar_scan(scene, R, p, **SCAN)
-        frames.append((t, pts, val, R, p))
-    return frames
+    scene, traj = _kitti_world()
+    t = 1.0 + i * FRAME_DT
+    R, p = _kitti_pose(i)
+    if distorted:
+        pts, val = sim.simulate_lidar_scan_distorted(scene, traj, t, FRAME_DT,
+                                                     np.array([0.0, 0.0, 1.5]), **SCAN)
+    else:
+        pts, val = sim.simulate_lidar_scan(scene, R, p, **SCAN)
+    return t, pts, val, R, p
+
+
+def _sequence(n: int, distorted: bool = False):
+    """n HDL-64 scans at 10 Hz along Trajectory(speed=8.0), sensor 1.5 m up:
+    [(t, points (115200, 3) f32, valid, R_wb, p_wb)]; `distorted` sweeps each
+    scan over its frame period (rolling shutter, end-of-scan pose)."""
+    return [_scan_frame(i, distorted) for i in range(n)]
 
 
 def cold_start_rig(sim, rig_cls):
@@ -260,17 +310,191 @@ def cold_start_frame(sim, traj, scene, i):
     return t, imu, img, pts, val
 
 
-def _images(frames):
-    """uint8 camera images (370 x 1226) rendered at the frames' poses."""
+def loop_lap(pipe, sim, tum, traj, scene, n_frames, on_frame=None, frame=None):
+    """tests/test_e2e_loop.py's lap through `pipe`, either package's
+    VILFusionPipeline built on cold_start_rig with the visual loop
+    (VisualLoopConfig(capacity=512, keyframe_gap=0.75)): cold start, noisy
+    biased IMU, n_frames frames, then finalize(). `on_frame(i)` runs after
+    frame i; `frame(i)` gives frame i (cold_start_frame by default).
+    Returns that test's quantities: the initialization frame,
+    restarts, outputs, ScanContext and visual loops, the first frame with a
+    visual loop, the ATEs of the VIO path (initialized frames), of the
+    global-fusion keyframes and of the rebuilt loop path, and the VIO error
+    around the first visual loop."""
+    import numpy as np
+
+    if frame is None:
+        def frame(i):
+            return cold_start_frame(sim, traj, scene, i)
+    gt, vio_errs, loop_frame, init = {}, [], None, None
+    for i in range(n_frames):
+        t, imu, img, pts, val = frame(i)
+        if imu is not None:
+            pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+        pipe.push_scan(t, pts, val)
+        pipe.push_image(t, img)
+        gt[round(t, 6)] = traj.position(t) + np.array([0.0, 0.0, 1.5])
+        if init is None and pipe.estimator.initialized:
+            init = i
+        if pipe.outputs.vio_p and pipe.estimator.initialized:
+            vio_errs.append((i, float(np.linalg.norm(
+                pipe.outputs.vio_p[-1] - gt[round(pipe.outputs.ts[-1], 6)]))))
+        if loop_frame is None and int(pipe.visual_loop.graph.n_loops) >= 1:
+            loop_frame = i
+        if on_frame is not None:
+            on_frame(i)
+    pipe.finalize()
+    ini = np.asarray(pipe.outputs.initialized, bool)
+    gt_frames = np.stack([gt[round(t, 6)] for t in pipe.outputs.ts])[ini]
+    _, p_kf = pipe.fusion.poses()
+    pre = [e for f, e in vio_errs if loop_frame is not None and loop_frame - 5 <= f <= loop_frame]
+    post = [e for f, e in vio_errs if loop_frame is not None and f >= loop_frame + 3]
+    return dict(
+        init_frame=init, restarts=pipe.restarts, outputs=len(pipe.outputs.ts),
+        sc_loops=len(pipe.fusion.loops_found), visual_loops=int(pipe.visual_loop.graph.n_loops),
+        loop_frame=loop_frame,
+        ate_vio=float(tum.ate_rmse(np.stack(pipe.outputs.vio_p)[ini], gt_frames)),
+        ate_fs=float(tum.ate_rmse(np.asarray(p_kf),
+                                  np.stack([gt[round(t, 6)] for t in pipe.fusion.kf_ts]))),
+        ate_loop=float(tum.ate_rmse(np.stack(pipe.outputs.loop_p)[ini], gt_frames)),
+        vio_err_pre_max=max(pre) if pre else None, vio_err_post_min=min(post) if post else None)
+
+
+def loop_gates(r, n_frames) -> list:
+    """tests/test_e2e_loop.py's asserts on loop_lap's result over n_frames
+    frames: the failures."""
+    bad = []
+    if r["init_frame"] is None:
+        bad.append("cold-start initialization never fired")
+    if r["restarts"]:
+        bad.append(f"{r['restarts']} failure-detection restarts")
+    if r["outputs"] < n_frames - 10:
+        bad.append(f"{r['outputs']} outputs of {n_frames} frames")
+    if r["sc_loops"] < 1:
+        bad.append("no verified ScanContext loop")
+    if r["visual_loops"] < 1 or r["loop_frame"] is None:
+        bad.append("no visual loop")
+    if not (r["ate_fs"] < r["ate_vio"] and r["ate_fs"] < 0.5):
+        bad.append(f"fs_loam_loop ATE {r['ate_fs']:.3f} against VIO {r['ate_vio']:.3f} (< 0.5)")
+    if not r["ate_loop"] <= 1.05 * r["ate_vio"]:
+        bad.append(f"loop-path ATE {r['ate_loop']:.3f} worse than VIO {r['ate_vio']:.3f}")
+    if r["vio_err_post_min"] is not None and not r["vio_err_post_min"] < r["vio_err_pre_max"]:
+        bad.append(f"VIO error did not drop after the relocalization: pre "
+                   f"{r['vio_err_pre_max']:.2f}, post {r['vio_err_post_min']:.2f}")
+    return bad
+
+
+def mask_rig(sim, rig_cls):
+    """tests/test_pipeline.py's synthetic rig without lidar (240 x 320,
+    max_cnt 80, min_dist 18) for either package."""
+    import numpy as np
+
+    r_bc = np.array(R_BC)
+    return rig_cls(
+        name="synthetic",
+        camera=dict(model_type="PINHOLE",
+                    projection_parameters=dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0),
+                    distortion_parameters=dict(k1=0.0, k2=0.0, p1=0.0, p2=0.0)),
+        image_height=240, image_width=320, q_ic=sim.R_to_q(r_bc), t_ic=np.zeros(3),
+        q_cl=sim.R_to_q(r_bc.T), t_cl=np.zeros(3), max_cnt=80, min_dist=18, n_scan=32,
+        lidar_fov_up=30.0, lidar_fov_down=-30.0, lidar_min_range=1.0, lidar_max_range=80.0,
+        use_lidar=False)
+
+
+def _texture(H, W, seed, scale):
+    """tests/test_vision.py's smooth random texture: a function (y, x) -> [0, 1)."""
+    import numpy as np
+
+    grid = np.random.default_rng(seed).random((H // scale + 2, W // scale + 2))
+    gh, gw = grid.shape
+
+    def sample(y, x):
+        gy, gx = np.clip(y / scale, 0, gh - 1.001), np.clip(x / scale, 0, gw - 1.001)
+        y0, x0 = gy.astype(int), gx.astype(int)
+        fy, fx = gy - y0, gx - x0
+        return (grid[y0, x0] * (1 - fx) * (1 - fy) + grid[y0, x0 + 1] * fx * (1 - fy)
+                + grid[y0 + 1, x0] * (1 - fx) * fy + grid[y0 + 1, x0 + 1] * fx * fy)
+
+    return sample
+
+
+def mask_frames(sim, n_frames):
+    """tests/test_pipeline.py:263's sequence: Trajectory(speed=1.5), 10 Hz,
+    a moving 80 x 80 textured object composited into each image with its
+    mask. [(t, IMU (ts, acc, gyr) or None, image, mask, object corner,
+    ground-truth position)] and the initial (p, q, v)."""
+    import numpy as np
+
+    scene = sim.RaycastScene()
+    traj = sim.Trajectory(sim.TrajectoryConfig(speed=1.5))
+    tex = _texture(120, 120, seed=99, scale=4)
+    yy, xx = np.mgrid[0:80, 0:80].astype(np.float64)
+    out = []
+    for i in range(n_frames):
+        t = 1.0 + i * FRAME_DT
+        R, p = traj.rotation(t), traj.position(t) + np.array([0.0, 0.0, 1.5])
+        img = sim.render_camera_image(scene, R @ np.array(R_BC), p, 250.0, 250.0, 160.0, 120.0,
+                                      240, 320).copy()
+        ox, oy = 40 + i * 9, 70 + (i % 5) * 4
+        img[oy:oy + 80, ox:ox + 80] = tex(yy + i * 2.0, xx + i * 5.0).astype(np.float32)
+        mask = np.zeros((240, 320), bool)
+        mask[oy:oy + 80, ox:ox + 80] = True
+        imu = sim.simulate_imu(traj, t - FRAME_DT, t, IMU_RATE) if i else None
+        out.append((t, imu, img, mask, (ox, oy), p))
+    q0, p0 = traj.pose(1.0)
+    return out, (p0 + np.array([0.0, 0.0, 1.5]), q0, traj.velocity(1.0))
+
+
+def mask_inside(xy, box):
+    """Tracked features inside the un-eroded core (8 px in) of the object."""
+    ox, oy = box
+    return int(((xy[:, 0] > ox + 8) & (xy[:, 0] < ox + 72)
+                & (xy[:, 1] > oy + 8) & (xy[:, 1] < oy + 72)).sum())
+
+
+def _render(R_wb, p_wb):
+    """uint8 camera image (370 x 1226) of the KITTI rig at a body pose."""
     import numpy as np
 
     from vil_fusion_tpu_torch.runtime import sim
 
-    scene = sim.RaycastScene()
-    r_bc = np.array(R_BC)
-    return [(np.clip(sim.render_camera_image(scene, fr[3] @ r_bc, fr[4], FX, FX, CX, CY,
-                                             IMG_H, IMG_W), 0.0, 1.0) * 255.0).astype(np.uint8)
-            for fr in frames]
+    img = sim.render_camera_image(_kitti_world()[0], R_wb @ np.array(R_BC), p_wb, FX, FX, CX, CY,
+                                  IMG_H, IMG_W)
+    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def _images(frames):
+    """uint8 camera images (370 x 1226) rendered at the frames' poses."""
+    return [_render(fr[3], fr[4]) for fr in frames]
+
+
+@functools.lru_cache(maxsize=None)
+def _lap_world():
+    """cold_start_rig's trajectory and scene, once a process."""
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+
+    return cold_start_rig(sim, RigConfig)[3:]
+
+
+def _lap_frame(i: int):
+    """Frame i of the cold-start rig's sequence (cold_start_frame)."""
+    from vil_fusion_tpu_torch.runtime import sim
+
+    return cold_start_frame(sim, *_lap_world(), i)
+
+
+class _Ahead:
+    """Frames computed ahead, in order, by a process pool's imap: frame(i)
+    waits for frame i and keeps every frame for later readers."""
+
+    def __init__(self, it):
+        self._it, self._got = it, []
+
+    def __call__(self, i):
+        while len(self._got) <= i:
+            self._got.append(next(self._it))
+        return self._got[i]
 
 
 def _margin_rows(d_ref, k: int):
@@ -428,6 +652,33 @@ def _kernel_inputs(frames, dev, big=True):
                                  origin=origin, gen=gen, rnd=rnd, rnd_valid=rnd_valid)
 
 
+def _densify_inputs(dev, gen):
+    """The visual loop's densification call (VisualLoopDB.add_keyframe ->
+    depth_association.feature_depth) at the lap's shape: extra_cap = 384
+    corner rays inside the 240 x 320 camera's field of view against frame
+    0's 32 x 600 scan of cold_start_rig on the unit sphere, with the depth
+    association's field-of-view gate. Draws from `gen`."""
+    import numpy as np
+    import torch
+
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+
+    _, _, _, traj, scene = cold_start_rig(sim, RigConfig)
+    _, _, _, pts, val = cold_start_frame(sim, traj, scene, 0)
+    cloud = torch.as_tensor(pts, device=dev) @ torch.tensor(R_BC, dtype=torch.float32,
+                                                            device=dev)
+    z = cloud[:, 2]
+    ok = (torch.as_tensor(val, device=dev) & (z > 0.3) & (cloud[:, 0].abs() < 1.3 * z)
+          & (cloud[:, 1].abs() < 1.3 * z))
+    sphere = cloud / torch.clamp(torch.linalg.norm(cloud, dim=-1), min=1e-6)[:, None]
+    xy = torch.as_tensor(gen.uniform([-0.64, -0.48], [0.64, 0.48], (LOOP_EXTRA_CAP, 2)),
+                         dtype=torch.float32, device=dev)
+    rays = torch.cat([xy, torch.ones_like(xy[:, :1])], dim=-1)
+    return (rays / torch.linalg.norm(rays, dim=-1, keepdim=True)).contiguous(), \
+        sphere.contiguous(), ok
+
+
 def _k3_inputs(inp):
     """K3's inputs of the kernels phase from `_kernel_inputs(..., big=True)`:
     {label: (queries, database, validity, presorted)}. The edge and surf
@@ -547,6 +798,20 @@ def _kernel_phase(frames, dev):
     note("K2", "depth", rays.shape[0], sphere.shape[0], 3,
          lambda: kc.knn_exact(rays, sphere, sphere_ok, k=3),
          _time_ms(lambda: kc.knn_exact_plain(rays, sphere, sphere_ok, k=3)))
+
+    # --- K2 at the visual loop's densification shape: the extra corners' rays
+    #     (extra_cap = 384) against the lap's 32 x 600 scan on the unit sphere ---
+    d_rays, d_sphere, d_ok = _densify_inputs(dev, gen)
+    n_ex = d_rays.shape[0]
+    d_k, i_k = kc.knn_exact(d_rays, d_sphere, d_ok, k=3)
+    d_p, i_p = kc.knn_exact_plain(d_rays, d_sphere, d_ok, k=3)
+    d_more, _ = kc.knn_exact_plain(d_rays, d_sphere, d_ok, k=4)
+    torch.cuda.synchronize()
+    errs["K2 densify"] = _compare(f"K2 densify sim {n_ex}x{d_sphere.shape[0]} k=3", d_k, i_k,
+                                  d_p, i_p, d_more, 3)
+    note("K2 densify", "densify", n_ex, d_sphere.shape[0], 3,
+         lambda: kc.knn_exact(d_rays, d_sphere, d_ok, k=3),
+         _time_ms(lambda: kc.knn_exact_plain(d_rays, d_sphere, d_ok, k=3)))
 
     # --- few and ragged queries, ragged databases: K1 / K2 in both forms ---
     n_ragged, by_kernels = 0, {1: 0, 2: 0}  # shapes, and those of 1 / 2 kernels a call
@@ -725,6 +990,7 @@ def _kernel_phase(frames, dev):
     records = {
         "K1": record("K1", "knn_grouped", f"{pk}:202", "surf"),
         "K2": record("K2", "knn_exact", f"{pk}:53", "icp"),
+        "K2 densify": record("K2 densify", "knn_exact", f"{pk}:53", "densify"),
         "K3": record("K3", "knn_sparse", f"{pk}:290", "surf 4x"),
         "K1 diff": record("K1 diff", "knn_grouped(form='diff')", f"{pk}:45", "surf"),
         "K2 diff": record("K2 diff", "knn_exact(form='diff')", f"{pk}:45", "icp"),
@@ -744,11 +1010,7 @@ def _counts(kc):
 
 
 def _reset(kc):
-    for fn in (kc.knn_grouped, kc.knn_exact):
-        fn.launches = 0
-        fn.launches_diff = 0
-    kc.knn_sparse.launches = 0
-    kc.morton_keys.launches = 0
+    kc.reset_counts()
 
 
 def _on_card(states, dev):
@@ -921,10 +1183,13 @@ def _front_end_path(frames, images, dev, card):
     return counts
 
 
-def _vil_path(frames, images, dev, card):
-    """Phase 7: VILFusionPipeline(mode="vil", sync_depth=0) over `frames` +
-    `images` with 200 Hz IMU from the oracle initial state. Returns the
-    kernels' launch counts of the run."""
+def _vil_path(frames, images, dev, card, sync_depth=0):
+    """Phase 7 (sync_depth=0) and phase 8 (sync_depth=2, the bench's
+    deployment configuration): VILFusionPipeline(mode="vil") over `frames` +
+    `images` with 200 Hz IMU from the oracle initial state. With
+    sync_depth > 0 every steady frame must be issued (_issue_frame) and
+    completed (_complete_frame) sync_depth frames later. Returns (launch
+    counts of the run, timed frames/s, the per-frame positions)."""
     import numpy as np
     import torch
 
@@ -934,13 +1199,27 @@ def _vil_path(frames, images, dev, card):
     from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
     from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
 
+    name = "vil" if sync_depth == 0 else "deferred"
     traj = sim.Trajectory(sim.TrajectoryConfig(speed=8.0))
     imus = [None] + [sim.simulate_imu(traj, fr[0] - FRAME_DT, fr[0], IMU_RATE)
                      for fr in frames[1:]]
-    pipe = VILFusionPipeline(_rig(), mode="vil", sync_depth=0, scan_quant=SCAN_QUANT, device=dev)
+    pipe = VILFusionPipeline(_rig(), mode="vil", sync_depth=sync_depth, scan_quant=SCAN_QUANT,
+                             device=dev)
     q0, p0 = traj.pose(frames[0][0])
     pipe.estimator.set_initial_state(p=p0 + np.array([0.0, 0.0, 1.5]), q=q0,
                                      v=traj.velocity(frames[0][0]))
+    issued, completed = [], []
+    issue, complete = pipe._issue_frame, pipe._complete_frame
+
+    def issue_rec(t, *a):
+        issued.append(t)
+        return issue(t, *a)
+
+    def complete_rec(rec):
+        completed.append(rec["t"])
+        return complete(rec)
+
+    pipe._issue_frame, pipe._complete_frame = issue_rec, complete_rec
     _reset(kc)
     keys, per_frame = [], []
     t0 = None
@@ -962,15 +1241,18 @@ def _vil_path(frames, images, dev, card):
         # K2: one depth association a frame
         want = (0 if i == 0 else 4 if i < 3 else 2, 1)
         if per_frame[-1] != want:
-            raise AssertionError(f"vil frame {i}: K1 / K2 launches {per_frame[-1]}, want {want}")
+            raise AssertionError(f"{name} frame {i}: K1 / K2 launches {per_frame[-1]}, want "
+                                 f"{want}")
         if pipe.restarts:
-            raise AssertionError(f"vil frame {i}: restart {pipe.restart_log}")
+            raise AssertionError(f"{name} frame {i}: restart {pipe.restart_log}")
         if i >= window.K - 1:
             if pipe.estimator.fused_steps != fused + 1:
-                raise AssertionError(f"vil frame {i}: the steady frame skipped fused_full_step")
+                raise AssertionError(f"{name} frame {i}: the steady frame skipped "
+                                     f"fused_full_step")
             keys.append(pipe.estimator.last_is_key)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    pipe.finalize()
     counts = _counts(kc)
     est = pipe.estimator
     _on_card({**{f"window.{k}": v for k, v in est.window._asdict().items()},
@@ -978,39 +1260,45 @@ def _vil_path(frames, images, dev, card):
               **{f"pre.{k}": v for k, v in est.pre._asdict().items()},
               "prior.J": est.prior.J, **{f"tracker.{k}": v for k, v in
                                          pipe.tracker_state._asdict().items()}}, dev)
+    steady = [fr[0] for fr in frames[window.K - 1:]]
+    if sync_depth and not (issued == completed == steady):
+        raise AssertionError(f"{name}: issued {len(issued)}, completed {len(completed)} of the "
+                             f"{len(steady)} steady frames")
     vio_p = np.stack(pipe.outputs.vio_p)
     if vio_p.shape != (len(frames), 3) or not (np.isfinite(vio_p).all()
                                               and np.isfinite(np.stack(pipe.outputs.vio_q)).all()):
-        raise AssertionError(f"vil: outputs of shape {vio_p.shape} or not finite")
+        raise AssertionError(f"{name}: outputs of shape {vio_p.shape} or not finite")
     errs = np.linalg.norm(vio_p - np.stack([fr[4] for fr in frames]), axis=1)
     lidar_gt = np.stack([frames[0][3].T @ (fr[4] - frames[0][4]) for fr in frames])
     lidar_errs = np.linalg.norm(np.stack(pipe.outputs.lidar_p) - lidar_gt, axis=1)
     stages = GLOBAL_TIMERS.summary()
-    print(f"  vil: {VIL_TIMED / dt:.3f} frames/s over {VIL_TIMED} frames after {VIL_WARMUP} "
-          f"warm-up frames [{card}]", flush=True)
-    print("  vil: host ms per timed frame (GLOBAL_TIMERS mean / p50): " + ", ".join(
+    print(f"  {name}: sync_depth={sync_depth}, {VIL_TIMED / dt:.3f} frames/s over {VIL_TIMED} "
+          f"frames after {VIL_WARMUP} warm-up frames [{card}]", flush=True)
+    print(f"  {name}: host ms per timed frame (GLOBAL_TIMERS mean / p50): " + ", ".join(
         f"{k} {stages[k]['mean_ms']:.2f} / {stages[k]['p50_ms']:.2f}"
-        for k in ("tracker", "lidar_odometry", "depth_association", "estimator", "global_fusion")
-        if k in stages), flush=True)
-    print(f"  vil: fused steps {est.fused_steps} of {len(frames) - (window.K - 1)} steady frames, "
-          f"keyframes {sum(keys)}, non-keyframes {len(keys) - sum(keys)}, restarts "
+        for k in ("tracker", "lidar_odometry", "depth_association", "estimator", "feed_uploads",
+                  "vil_fused_frame", "global_fusion") if k in stages), flush=True)
+    print(f"  {name}: fused steps {est.fused_steps} of {len(steady)} steady frames"
+          + (f" (issued {len(issued)}, completed {len(completed)})" if sync_depth else "")
+          + f", keyframes {sum(keys)}, non-keyframes {len(keys) - sum(keys)}, restarts "
           f"{pipe.restarts}", flush=True)
-    print(f"  vil: K1 / K2 launches per frame {per_frame} (as planned)", flush=True)
-    print(f"  vil: end-position error {errs[-1]:.4f} m (bound {VIL_END_ERR_BOUND_M} m; JAX "
+    print(f"  {name}: K1 / K2 launches per frame {per_frame} (as planned)", flush=True)
+    print(f"  {name}: end-position error {errs[-1]:.4f} m (bound {VIL_END_ERR_BOUND_M} m; JAX "
           f"package on the CPU at 32 x 900 scans: {VIL_REF_END_ERR_M} m), max {errs.max():.4f} m "
           f"over {np.linalg.norm(frames[-1][4] - frames[0][4]):.1f} m of travel; per frame "
           f"{np.round(errs, 4).tolist()}; lidar odometry end error {lidar_errs[-1]:.4f} m",
           flush=True)
     if not errs[-1] < VIL_END_ERR_BOUND_M:
-        raise AssertionError(f"vil: end-position error {errs[-1]:.4f} m >= "
+        raise AssertionError(f"{name}: end-position error {errs[-1]:.4f} m >= "
                              f"{VIL_END_ERR_BOUND_M} m")
-    return counts
+    return counts, VIL_TIMED / dt, vio_p
 
 
-def _cold_start(dev):
+def _cold_start(dev, frame=None):
     """Phase 7, second run: the cold start on tests/test_e2e_loop.py's rig
     until the estimator initializes (at most COLD_FRAME_CAP frames), then
-    COLD_AFTER_INIT frames more; no restart. Returns launch counts."""
+    COLD_AFTER_INIT frames more; no restart. `frame(i)` gives frame i
+    (cold_start_frame by default). Returns launch counts."""
     import numpy as np
     import torch
 
@@ -1027,7 +1315,8 @@ def _cold_start(dev):
     init = None
     t0 = time.perf_counter()
     for i in range(COLD_FRAME_CAP):
-        t, imu, img, pts, val = cold_start_frame(sim, traj, scene, i)
+        t, imu, img, pts, val = (frame or functools.partial(cold_start_frame, sim, traj,
+                                                            scene))(i)
         if imu is not None:
             pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
         pipe.push_scan(t, pts, val)
@@ -1052,6 +1341,112 @@ def _cold_start(dev):
     return _counts(kc)
 
 
+def _loop_path(dev, card, frame=None):
+    """Phase 9: tests/test_e2e_loop.py's lap on the card, visual loop on its
+    worker thread, sync_depth=2. Returns launch counts, with "K2 densify" the
+    worker's K2 launches at the densification shape (extra corners x this
+    frame's scan); fails on any of that test's asserts, on a worker error,
+    and if the densification never reached K2. `frame(i)` gives frame i
+    (cold_start_frame by default)."""
+    import numpy as np
+    import torch
+
+    from vil_fusion_tpu_torch.models import global_fusion as gf
+    from vil_fusion_tpu_torch.models import visual_loop as vl
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.runtime import sim, tum
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+    from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
+
+    rig, odom, gf_kw, traj, scene = cold_start_rig(sim, RigConfig)
+    pipe = VILFusionPipeline(rig, mode="vil", visual_loop=True, sync_depth=2,
+                             odom_overrides=odom, gf_cfg=gf.GlobalFusionConfig(**gf_kw),
+                             vl_cfg=vl.VisualLoopConfig(**LOOP_VL), device=dev)
+    _reset(kc)
+    GLOBAL_TIMERS.reset()
+    marks = {}
+
+    def on_frame(i):
+        if i in (LOOP_FRAMES // 4, LOOP_FRAMES // 2, 3 * LOOP_FRAMES // 4):
+            marks[i] = time.perf_counter() - t0
+            print(f"  loop: frame {i} after {marks[i]:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    r = loop_lap(pipe, sim, tum, traj, scene, LOOP_FRAMES, on_frame, frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(kc)
+    calls = kc.knn_exact.calls_by_stage.get("visual_loop", {})
+    n_pts = 32 * 600
+    counts["K2 densify"] = calls.get((pipe.visual_loop.cfg.extra_cap, n_pts, 3), 0)
+    worker = {k: getattr(kc, w).launches_by_stage.get("visual_loop", 0)
+              for k, w in (("K1", "knn_grouped"), ("K2", "knn_exact"), ("K3", "knn_sparse"))}
+    stages = GLOBAL_TIMERS.summary()
+    st = pipe.visual_loop.stats_summary()
+    print(f"  loop: {LOOP_FRAMES} frames in {wall:.1f} s ({LOOP_FRAMES / wall:.3f} frames/s, "
+          f"rendering included) [{card}]", flush=True)
+    print(f"  loop: initialized at frame {r['init_frame']} (JAX on the CPU: "
+          f"{LOOP_REF['init_frame']}), restarts {r['restarts']}, outputs {r['outputs']}, "
+          f"ScanContext loops {r['sc_loops']} (JAX {LOOP_REF['sc_loops']}), visual loops "
+          f"{r['visual_loops']} (JAX {LOOP_REF['visual_loops']}), first visual loop at frame "
+          f"{r['loop_frame']} (JAX {LOOP_REF['loop_frame']})", flush=True)
+    print(f"  loop: ATE VIO {r['ate_vio']:.4f} m, fs_loam_loop {r['ate_fs']:.4f} m, loop path "
+          f"{r['ate_loop']:.4f} m (JAX: {LOOP_REF['ate_vio']} / {LOOP_REF['ate_fs']} / "
+          f"{LOOP_REF['ate_loop']} m); VIO error around the first visual loop: max before "
+          f"{r['vio_err_pre_max']}, min after {r['vio_err_post_min']}", flush=True)
+    print(f"  loop: visual-loop DB {pipe.visual_loop.n} keyframes, gates {json.dumps(st)}",
+          flush=True)
+    print(f"  loop: launches {counts}; of them on the worker thread {worker}; K2 calls there "
+          f"by shape {calls}; worker errors {pipe.vl_errors}", flush=True)
+    print("  loop: host ms per frame (GLOBAL_TIMERS mean / p50 / n): " + ", ".join(
+        f"{k} {v['mean_ms']:.2f} / {v['p50_ms']:.2f} / {v['n']}" for k, v in stages.items()),
+        flush=True)
+    bad = loop_gates(r, LOOP_FRAMES)
+    if pipe.vl_errors:
+        bad.append(f"{pipe.vl_errors} visual-loop worker errors")
+    if counts["K2 densify"] < 1:
+        bad.append(f"the densification never launched K2 at ({pipe.visual_loop.cfg.extra_cap}, "
+                   f"{n_pts}, 3): {calls}")
+    if bad:
+        raise AssertionError("loop: " + "; ".join(bad))
+    _on_card({"hists": pipe.visual_loop.hists,
+              **{f"graph4.{k}": v for k, v in pipe.visual_loop.graph._asdict().items()}}, dev)
+    return counts
+
+
+def _mask_path(dev, card):
+    """Phase 10: mode "mask" on tests/test_pipeline.py:263's sequence, 16
+    frames from the oracle state: no more than 2 tracked features inside
+    the moving object's core on any frame, no restart, error < 0.5 m."""
+    import numpy as np
+
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+
+    frames, (p0, q0, v0) = mask_frames(sim, MASK_FRAMES)
+    pipe = VILFusionPipeline(mask_rig(sim, RigConfig), mode="mask", device=dev)
+    pipe.estimator.set_initial_state(p=p0, q=q0, v=v0)
+    errs, inside = [], []
+    t0 = time.perf_counter()
+    for t, imu, img, mask, box, p in frames:
+        if imu is not None:
+            pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+        pipe.push_image(t, img, mask=mask)
+        errs.append(float(np.linalg.norm(pipe.outputs.vio_p[-1] - p)))
+        ts = pipe.tracker_state
+        inside.append(mask_inside(ts.xy[ts.valid].cpu().numpy(), box))
+    dt = time.perf_counter() - t0
+    print(f"  mask: {MASK_FRAMES} frames in {dt:.1f} s; tracked features inside the object per "
+          f"frame {inside} (bound 2); error max {max(errs):.4f} m (bound 0.5; JAX on the CPU: "
+          f"{MASK_REF['max_err_m']} m), end {errs[-1]:.4f} m; restarts {pipe.restarts}; fused "
+          f"steps {pipe.estimator.fused_steps} [{card}]", flush=True)
+    if max(inside) > 2 or pipe.restarts or not max(errs) < 0.5:
+        raise AssertionError(f"mask: inside {inside}, restarts {pipe.restarts}, errors {errs}")
+    _on_card({f"tracker.{k}": v for k, v in pipe.tracker_state._asdict().items()}, dev)
+
+
 def main() -> int:
     import torch
 
@@ -1071,19 +1466,43 @@ def main() -> int:
         raise AssertionError("jax was imported")
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # the numpy simulator runs in a pool of processes: the HDL-64 scans while
+    # the kernels build, the lap's frames (phases 7 and 9) ahead of their use
+    n_procs = max(1, min(6, (os.cpu_count() or 2) - 2))
+    pool = multiprocessing.get_context("spawn").Pool(n_procs)
+    try:
+        return _phases(card, dev, kc, pool, n_procs, t_start)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
+    """Phases 2-10 of main(), the simulator's frames made in `pool`."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    # in the order they are needed: the scans, the rolling-shutter scans, the
+    # camera images (at the trajectory's poses), the lap
+    scans = pool.starmap_async(_scan_frame, [(i, False) for i in range(WARMUP_FRAMES
+                                                                        + TIMED_FRAMES)])
+    distorted_async = pool.starmap_async(
+        _scan_frame, [(i, True) for i in range(SHORT_RUNS["deskew"]["frames"])])
+    n_img = max(FRONT_WARMUP + FRONT_TIMED, VIL_WARMUP + VIL_TIMED)
+    images_async = pool.starmap_async(_render, [_kitti_pose(i) for i in range(n_img)])
+    lap = _Ahead(pool.imap(_lap_frame, range(LOOP_FRAMES), chunksize=2))
 
     # phase 2: build
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     kc.build(verbose=True)
-    print(f"build: {time.perf_counter() - t0:.2f} s into {kc.BUILD_DIR}", flush=True)
-
-    t0 = time.perf_counter()
-    frames = _sequence(WARMUP_FRAMES + TIMED_FRAMES)
-    print(f"data: {len(frames)} simulated HDL-64 scans in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"build: {time.perf_counter() - t1:.2f} s into {kc.BUILD_DIR}", flush=True)
+    frames = scans.get()
+    print(f"data: {len(frames)} simulated HDL-64 scans in {time.perf_counter() - t0:.1f} s "
+          f"({n_procs} processes, beside the build)", flush=True)
 
     # phase 3: kernels against their plain versions
-    print("kernels:", flush=True)
+    print(f"kernels: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
     records = _kernel_phase(frames, dev)
     launches = {k: {} for k in records}
 
@@ -1092,7 +1511,7 @@ def main() -> int:
             launches[k][path] = v
 
     # phase 4: the dense path
-    print("path dense:", flush=True)
+    print(f"path dense: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
     counts, fps, pipe = _lidar_path("dense", frames, WARMUP_FRAMES, dev, card,
                                     need={"K1": 1, "K2": 0}, prewarm=True)
     _pose_errors("dense", pipe.outputs.lidar_p, pipe.outputs.lidar_q, frames, END_ERR_BOUND_M)
@@ -1102,7 +1521,7 @@ def main() -> int:
     add("dense", counts)
 
     # phase 5: the sparse path and the short runs of the other options
-    print("path sparse:", flush=True)
+    print(f"path sparse: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
     n = WARMUP_FRAMES + SPARSE_TIMED_FRAMES
     counts, fps, pipe = _lidar_path(
         "sparse", frames[:n], WARMUP_FRAMES, dev, card,
@@ -1119,7 +1538,7 @@ def main() -> int:
     add("sparse", counts)
     del pipe
     t0 = time.perf_counter()
-    distorted = _sequence(SHORT_RUNS["deskew"]["frames"], distorted=True)
+    distorted = distorted_async.get()
     print(f"data: {len(distorted)} rolling-shutter HDL-64 scans in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     short_need = {"diff": {"K1 diff": 1}, "hash": {}, "deskew": {"K2 diff": 1}}
@@ -1136,22 +1555,42 @@ def main() -> int:
         del pipe
 
     # phase 6: the vil frame's front end
-    print("path front end:", flush=True)
+    print(f"path front end: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
     n = FRONT_WARMUP + FRONT_TIMED
     n_vil = VIL_WARMUP + VIL_TIMED
     t0 = time.perf_counter()
-    images = _images(frames[:max(n, n_vil)])
+    images = images_async.get()
     print(f"data: {len(images)} rendered {IMG_W} x {IMG_H} images in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     add("front end", _front_end_path(frames[:n], images[:n], dev, card))
 
     # phase 7: the whole vil frame, then the cold start
-    print("path vil:", flush=True)
-    add("vil", _vil_path(frames[:n_vil], images[:n_vil], dev, card))
-    add("cold start", _cold_start(dev))
+    print(f"path vil: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
+    counts, fps_sync, vio_sync = _vil_path(frames[:n_vil], images[:n_vil], dev, card)
+    add("vil", counts)
+    add("cold start", _cold_start(dev, lap))
 
-    on_path = {"K1": ("dense", "front end", "vil"),
-               "K2": ("dense", "sparse", "front end", "vil", "cold start"),
+    # phase 8: the same frames at sync_depth=2 (the deferred path)
+    print(f"path deferred: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
+    counts, fps_deferred, vio_deferred = _vil_path(frames[:n_vil], images[:n_vil], dev, card,
+                                                   sync_depth=2)
+    add("deferred", counts)
+    print(f"  deferred: frames/s sync_depth=0 {fps_sync:.3f}, sync_depth=2 {fps_deferred:.3f}; "
+          f"largest distance between the two trajectories "
+          f"{np.abs(vio_deferred - vio_sync).max():.4f} m (not gated: the card's atomic sums "
+          f"make runs differ) [{card}]", flush=True)
+
+    # phase 9: tests/test_e2e_loop.py's lap with the visual loop
+    print(f"path loop: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
+    add("loop", _loop_path(dev, card, lap))
+
+    # phase 10: mode "mask"
+    print(f"path mask: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
+    _mask_path(dev, card)
+
+    on_path = {"K1": ("dense", "front end", "vil", "deferred"),
+               "K2": ("dense", "sparse", "front end", "vil", "cold start", "deferred", "loop"),
+               "K2 densify": ("loop",),
                "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",),
                "Morton keys": ("sparse",)}
     for kname, rec in records.items():

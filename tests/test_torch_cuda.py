@@ -1,8 +1,9 @@
 """The port on a CUDA card: the K1/K2/K3 kernels (both distance forms of K1
 and K2) and the Morton-key kernels against their plain versions at the main paths' shapes, the
 dispatcher's routing on the card, the LiDAR-only slice, the vil front end and
-one fused estimator step on the card against the same code on the CPU, and
-the Schur solve's Cholesky fallback on the card.
+one fused estimator step on the card against the same code on the CPU, the
+deferred pipeline (sync_depth=2) on the card against the CPU, and the Schur
+solve's Cholesky fallback on the card.
 
 Imports torch and numpy only (a CUDA machine need not have jax). Every
 test needs a card and skips without one. Where jax is not installed, skip
@@ -46,6 +47,7 @@ def _margin_rows(d, k):
     (2048, 51200, 1, False),  # ICP
     (8192, 32768, 5, False),  # exact association (approx_knn=False)
     (192, 115200, 3, False),  # depth association
+    (384, 19200, 3, False),  # the visual loop's densification (extra corners x e2e scan)
     (300, 1000, 8, False),
     (77, 130, 3, True),
 ] + [(nq, nd, k, grouped)  # few and ragged queries, ragged databases, one chunk to the cap
@@ -491,3 +493,72 @@ def test_cuda_fused_step_matches_cpu(cuda_device):
     np.testing.assert_allclose(out_g[0], out_c[0], atol=1e-3)
     np.testing.assert_allclose(out_g[1], out_c[1], atol=1e-3)
     assert all(x.is_cuda for x in list(gpu.window) + list(gpu.feats) + list(gpu.pre))
+
+
+def test_cuda_deferred_pipeline_matches_cpu(cuda_device):
+    """VILFusionPipeline(mode="vil", sync_depth=2) on the card against the
+    same pipeline on the CPU (tests/test_torch_deferred.py's small rig: 160
+    x 120 images, quantized 16-ring scans, oracle state, 14 frames, the
+    tracker's RANSAC off): the steady frames issued and completed through
+    the pinned host copies, lidar and estimator positions within 0.05 m of
+    the CPU's (float32 sums in other orders along 14 registrations of
+    16-ring scans at 4 m/s: test_torch_vil_pipeline.py's bound between the
+    packages for the same reason), the same keyframes, no restart, K2
+    launched."""
+    from vil_fusion_tpu_torch.models import global_fusion as gf
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+
+    H, W, F = 120, 160, 100.0
+    r_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    rig = RigConfig(
+        name="small", camera=dict(model_type="PINHOLE",
+                                  projection_parameters=dict(fx=F, fy=F, cx=W / 2, cy=H / 2),
+                                  distortion_parameters=dict(k1=0.0, k2=0.0, p1=0.0, p2=0.0)),
+        image_height=H, image_width=W, q_ic=sim.R_to_q(r_bc), t_ic=np.array([0.1, 0.0, 0.05]),
+        q_cl=sim.R_to_q(r_bc.T), t_cl=np.array([0.0, -0.1, 0.02]), max_cnt=40, min_dist=12,
+        n_scan=16, lidar_fov_up=15.0, lidar_fov_down=-15.0, lidar_min_range=1.0,
+        lidar_max_range=80.0, f_threshold=3.0)
+    pipes = []
+    for dev in ("cpu", cuda_device):
+        p = VILFusionPipeline(
+            rig, mode="vil", f_cap=64, sync_depth=2, scan_quant=0.0025, device=dev,
+            odom_overrides=dict(edge_map_cap=2048, surf_map_cap=4096, edge_cap=256,
+                                surf_cap=1024, approx_knn=False),
+            gf_cfg=gf.GlobalFusionConfig(node_capacity=64, loop_capacity=8, cloud_capacity=512,
+                                         submap_half_span=3))
+        p.tracker_cfg = p.tracker_cfg._replace(ransac=False)
+        p.fe = p.fe._replace(tcfg=p.tracker_cfg)
+        pipes.append(p)
+    scene = sim.RaycastScene()
+    traj = sim.Trajectory(sim.TrajectoryConfig(speed=4.0))
+    q0, p0 = traj.pose(1.0)
+    for p in pipes:
+        p.estimator.set_initial_state(p=p0 + np.array([0, 0, 1.5]), q=q0, v=traj.velocity(1.0))
+    k1, k2 = kc.knn_grouped.launches, kc.knn_exact.launches
+    for i in range(14):
+        t = 1.0 + 0.1 * i
+        R, pos = traj.rotation(t), traj.position(t) + np.array([0, 0, 1.5])
+        img = (np.clip(sim.render_camera_image(scene, R @ r_bc, pos, F, F, W / 2, H / 2, H, W),
+                       0, 1) * 255).astype(np.uint8)
+        pts, val = sim.simulate_lidar_scan(scene, R, pos, n_scan=16, width=900, fov_up_deg=15.0,
+                                           fov_down_deg=-15.0, max_range=80.0, seed=i)
+        imu = sim.simulate_imu(traj, t - 0.1, t, 200.0) if i else None
+        for p in pipes:
+            if imu is not None:
+                p.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+            p.push_scan(t, pts.copy(), val.copy())
+            p.push_image(t, img)
+    for p in pipes:
+        assert p.finalize() is not None
+    assert kc.knn_exact.launches - k2 >= 14 and kc.knn_grouped.launches - k1 == 0
+    cpu, gpu = pipes
+    assert gpu.estimator.fused_steps == cpu.estimator.fused_steps == 14 - 10
+    assert len(gpu.outputs.ts) == len(cpu.outputs.ts) == 14 and gpu.restarts == cpu.restarts == 0
+    for k in ("lidar_p", "vio_p"):
+        a, b = (np.stack(getattr(p.outputs, k)) for p in (gpu, cpu))
+        print(f"{k}: card against CPU, max |difference| {np.abs(a - b).max():.4g} m")
+        np.testing.assert_allclose(a, b, atol=0.05)
+    assert gpu.fusion.n_kf == cpu.fusion.n_kf
+    assert all(x.is_cuda for x in list(gpu.estimator.window) + list(gpu.tracker_state))

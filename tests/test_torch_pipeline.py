@@ -145,15 +145,18 @@ def test_scan_dequantization_exact():
 
 
 def test_pipeline_modes_and_imu(tmp_path):
-    """Modes "vil", "vio" and "lidar" build; only mode="mask" and
-    sync_depth > 0 raise (naming ROADMAP.md); push_imu / push_imu_batch
-    buffer, and return no IMU-rate pose before the estimator is solved (nor
-    ever in LiDAR-only odometry); load_rig reads a rig YAML with the port's
-    own reader."""
+    """Modes "vil", "vio", "mask" and "lidar" build, mode="mask" with the
+    tracker's mask gate, sync_depth > 0 with its deferred queue, and an
+    unknown mode raises; push_imu / push_imu_batch buffer, and return no
+    IMU-rate pose before the estimator is solved (nor ever in LiDAR-only
+    odometry); load_rig reads a rig YAML with the port's own reader."""
     rig = TRig(**RIG_KW)
     for kw in (dict(mode="mask"), dict(mode="vil", sync_depth=1), dict(mode="vio", sync_depth=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.VILFusionPipeline(rig, device="cpu", **kw)
+        p = tpipe.VILFusionPipeline(rig, device="cpu", **kw)
+        assert p.tracker_cfg.mask_gate == (kw["mode"] == "mask")
+        assert p.sync_depth == kw.get("sync_depth", 0) and p._pending == []
+    with pytest.raises(ValueError, match="unknown mode"):
+        tpipe.VILFusionPipeline(rig, mode="stereo", device="cpu")
     for mode in ("vil", "vio"):
         p = tpipe.VILFusionPipeline(rig, mode=mode, device="cpu")
         assert p.estimator.cfg.ba.use_lidar == (mode == "vil") and (p.fusion is None) == (mode == "vio")

@@ -2,7 +2,7 @@
 (sync_depth=0) against vil_fusion_tpu's over the same 14 frames (16-ring
 scans quantized to int16, 160 x 120 images, 200 Hz IMU, oracle initial
 state), plus mode "vio", the IMU-rate output, the restart seeded from the
-lidar odometry, `vil_frame`, and what still raises.
+lidar odometry, `vil_frame`, and what raised before this slice.
 
 The tracker's RANSAC is off in both pipelines (its samples come from
 different generators; its parity is test_torch_vision.py's), and the
@@ -224,14 +224,22 @@ def test_vio_mode_runs():
 
 
 def test_not_ported_paths_raise():
-    """mode="mask", sync_depth > 0, visual_loop=True, a dynamic mask and
-    the deferred estimator step raise NotImplementedError naming ROADMAP.md."""
+    """What raised before the deferred path, mode "mask" and the visual loop
+    were ported now builds: mode="mask" (the tracker's mask gate on),
+    sync_depth > 0, visual_loop=True (the keyframe database on the
+    pipeline's device, the rig's depth incidence); a dynamic mask is
+    queued with its image; the deferred estimator step refuses an estimator
+    that is not initialized with a full window."""
     rig = TRig(**RIG_KW)
     for kw in (dict(mode="mask"), dict(sync_depth=2), dict(visual_loop=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.VILFusionPipeline(rig, device="cpu", **kw)
+        p = tpipe.VILFusionPipeline(rig, device="cpu", **kw)
+        assert p.tracker_cfg.mask_gate == (kw.get("mode") == "mask")
+        assert p.sync_depth == kw.get("sync_depth", 0)
+        assert (p.visual_loop is not None) == ("visual_loop" in kw)
+    assert p.visual_loop.min_incidence == rig.depth_min_incidence
+    assert p.visual_loop.hists.device.type == "cpu"
     pipe = tpipe.VILFusionPipeline(rig, mode="vio", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.push_image(1.0, np.zeros((H, W), np.uint8), mask=np.zeros((H, W), bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.estimator.process_frame_device_async()
+    pipe.push_image(1.0, np.zeros((H, W), np.uint8), mask=np.zeros((H, W), bool))
+    assert len(pipe.outputs.ts) == 1
+    with pytest.raises(ValueError, match="full window"):
+        pipe.estimator.process_frame_device_async(*[None] * 8)

@@ -5,6 +5,8 @@ chip_smoke.py, on the CPU at a reduced scan.
     JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode deskew --frames 6
     JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode vil --frames 34
     JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode coldstart --frames 80
+    JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode e2eloop --frames 390
+    JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode mask --frames 16
 
 The port's smoke run (chip_smoke.py) bounds its end-position errors from
 these numbers. Modes dense (default odometry), deskew (deskew=True on
@@ -20,7 +22,12 @@ estimator's end error. Mode coldstart runs the cold-start rig of
 chip_smoke.py (tests/test_e2e_loop.py's: 240 x 320 images, 32 x 600 scans,
 LoopTrajectory, no visual loop, sync_depth=0) until the estimator
 initializes, and COLD_AFTER_INIT frames more, and reports that frame and the
-restarts. Prints one line of JSON.
+restarts. Mode e2eloop runs tests/test_e2e_loop.py's lap (chip_smoke.py's
+phase 9: the cold-start rig with the visual loop, sync_depth=2) and reports
+its quantities (initialization frame, loops, first visual-loop frame, the
+three ATEs); mode mask runs tests/test_pipeline.py:263's masked sequence
+(chip_smoke.py's phase 10) and reports the errors and the tracked features
+inside the moving object. Prints one line of JSON.
 """
 from __future__ import annotations
 
@@ -119,17 +126,60 @@ def _coldstart(frames: int) -> dict:
                 image="320x240")
 
 
+def _e2eloop(frames: int) -> dict:
+    """chip_smoke.py's phase 9 (tests/test_e2e_loop.py's lap) through the JAX
+    pipeline: loop_lap's quantities and the failures of the test's gates."""
+    import chip_smoke as cs
+    from vil_fusion_tpu.models import global_fusion as gf
+    from vil_fusion_tpu.models import visual_loop as vl
+    from vil_fusion_tpu.runtime import tum
+    from vil_fusion_tpu.runtime.config import RigConfig
+    from vil_fusion_tpu.runtime.pipeline import VILFusionPipeline
+
+    rig, odom, gf_kw, traj, scene = cs.cold_start_rig(sim, RigConfig)
+    pipe = VILFusionPipeline(rig, mode="vil", visual_loop=True, sync_depth=2,
+                             odom_overrides=odom, gf_cfg=gf.GlobalFusionConfig(**gf_kw),
+                             vl_cfg=vl.VisualLoopConfig(**cs.LOOP_VL))
+    r = cs.loop_lap(pipe, sim, tum, traj, scene, frames)
+    return dict(r, gate_failures=cs.loop_gates(r, frames), keyframes=pipe.visual_loop.n,
+                visual_loop_stats=pipe.visual_loop.stats_summary(), scan="32x600",
+                image="320x240")
+
+
+def _mask(frames: int) -> dict:
+    """chip_smoke.py's phase 10 through the JAX pipeline."""
+    import chip_smoke as cs
+    from vil_fusion_tpu.runtime.config import RigConfig
+    from vil_fusion_tpu.runtime.pipeline import VILFusionPipeline
+
+    seq, (p0, q0, v0) = cs.mask_frames(sim, frames)
+    pipe = VILFusionPipeline(cs.mask_rig(sim, RigConfig), mode="mask")
+    pipe.estimator.set_initial_state(p=p0, q=q0, v=v0)
+    errs, inside = [], []
+    for t, imu, img, mask, box, p in seq:
+        if imu is not None:
+            pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+        pipe.push_image(t, img, mask=mask)
+        errs.append(float(np.linalg.norm(pipe.outputs.vio_p[-1] - p)))
+        ts = pipe.tracker_state
+        inside.append(cs.mask_inside(np.asarray(ts.xy)[np.asarray(ts.valid)], box))
+    return dict(max_err_m=max(errs), end_err_m=errs[-1], inside=inside, restarts=pipe.restarts,
+                image="320x240")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=sorted(MODES) + ["coldstart", "vil"], default="dense")
+    ap.add_argument("--mode", choices=sorted(MODES) + ["coldstart", "e2eloop", "mask", "vil"],
+                    default="dense")
     ap.add_argument("--frames", type=int, default=10)
     args = ap.parse_args()
     head = dict(package="vil_fusion_tpu (JAX, CPU)", mode=args.mode, frames=args.frames)
     if args.mode == "vil":
         print(json.dumps(dict(head, scan="32x900", maps="4096/8192", **_vil(args.frames))))
         return
-    if args.mode == "coldstart":
-        print(json.dumps(dict(head, **_coldstart(args.frames))))
+    if args.mode in ("coldstart", "e2eloop", "mask"):
+        run = dict(coldstart=_coldstart, e2eloop=_e2eloop, mask=_mask)[args.mode]
+        print(json.dumps(dict(head, **run(args.frames))))
         return
 
     scene = sim.RaycastScene()

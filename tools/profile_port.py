@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Where a frame of the PyTorch port spends its time on the card.
 
-    python3 tools/profile_port.py [--path dense|sparse|front|vil] [--frames 6]
+    python3 tools/profile_port.py [--path dense|sparse|front|vil|loop] [--frames 6]
 
 Runs the path of chip_smoke.py of that name (same rig, scans, images, IMU
 and configuration) for 8 warm-up frames (14 for vil: the estimator's window
-fills at frame 10), times `--frames` steady frames with
+fills at frame 10; 40 for loop, tests/test_e2e_loop.py's lap with the visual
+loop on its worker thread and sync_depth=2: the cold start and the window's
+filling, then steady frames with keyframe insertion and BoW queries, before
+the revisit; its frames are rendered before the timing), times `--frames`
+steady frames with
 the host clock (no profiler: starting one costs seconds), then traces the
 next `--frames` frames with torch.profiler (CPU + CUDA activities) and
 prints: wall time per frame without the profiler, device kernel time per
 frame and its share of that wall time (the device's busy share), kernel
-launches per frame, the kNN kernels' share of the device time, and the ten kernels with
-the most device time. Needs one NVIDIA card; prints the card's name and
-power limit first.
+launches per frame, launches, host waits and copies per frame inside each
+GLOBAL_TIMERS stage (the visual-loop worker's jobs are the stage
+"visual_loop"; the trace covers every thread), the kNN kernels' share of the
+device time, and the ten kernels with the most device time. Needs one
+NVIDIA card; prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import chip_smoke as cs  # noqa: E402
 
 WARMUP = 8
 WARMUP_VIL = 14
+WARMUP_LOOP = 40
 
 
 def _stepper(path: str, n: int, dev):
@@ -35,6 +42,28 @@ def _stepper(path: str, n: int, dev):
     import numpy as np
     import torch
 
+    if path == "loop":
+        from vil_fusion_tpu_torch.models import global_fusion as gf
+        from vil_fusion_tpu_torch.models import visual_loop as vl
+        from vil_fusion_tpu_torch.runtime import sim
+        from vil_fusion_tpu_torch.runtime.config import RigConfig
+        from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+
+        rig, odom, gf_kw, traj, scene = cs.cold_start_rig(sim, RigConfig)
+        pipe = VILFusionPipeline(rig, mode="vil", visual_loop=True, sync_depth=2,
+                                 odom_overrides=odom, gf_cfg=gf.GlobalFusionConfig(**gf_kw),
+                                 vl_cfg=vl.VisualLoopConfig(**cs.LOOP_VL), device=dev)
+        lap = [cs.cold_start_frame(sim, traj, scene, i) for i in range(n)]
+
+        def step_loop(i):
+            t, imu, img, pts, val = lap[i]
+            if imu is not None:
+                pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+            pipe.push_scan(t, pts, val)
+            return pipe.push_image(t, img)
+
+        step_loop.pipe = pipe  # main() waits for its worker at the window's end
+        return step_loop
     frames = cs._sequence(n)
     if path in ("dense", "sparse"):
         from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
@@ -95,7 +124,7 @@ def _stage_names() -> set:
     from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
 
     return set(GLOBAL_TIMERS.stats) | {"tracker", "lidar_odometry", "depth_association",
-                                       "estimator", "global_fusion"}
+                                       "estimator", "global_fusion", "visual_loop"}
 
 
 def _count_by_stage(prof, names, keys) -> dict:
@@ -117,7 +146,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("dense", "sparse", "front", "vil"), default="dense")
+    ap.add_argument("--path", choices=("dense", "sparse", "front", "vil", "loop"),
+                    default="dense")
     ap.add_argument("--frames", type=int, default=6)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -126,7 +156,7 @@ def main() -> int:
     print(f"card: {cs._card_line()} | path {args.path}", flush=True)
     dev = torch.device("cuda", 0)
     n = args.frames
-    warmup = WARMUP_VIL if args.path == "vil" else WARMUP
+    warmup = dict(vil=WARMUP_VIL, loop=WARMUP_LOOP).get(args.path, WARMUP)
     step = _stepper(args.path, warmup + 2 * n, dev)
     for i in range(warmup):
         step(i)
@@ -136,10 +166,25 @@ def main() -> int:
         step(i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    try:  # trace the visual-loop worker's thread too
+        cfg = dict(experimental_config=torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True))
+    except TypeError:
+        print("  (this torch profiles the calling thread only)", flush=True)
+        cfg = {}
+    from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
+
+    jobs = GLOBAL_TIMERS.summary().get("visual_loop", {}).get("n", 0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **cfg) as prof:
         for i in range(warmup + n, warmup + 2 * n):
             step(i)
+        if hasattr(step, "pipe"):  # let the worker's job in flight end inside the trace
+            step.pipe._vl_idle.wait(timeout=120.0)
         torch.cuda.synchronize()
+    if hasattr(step, "pipe"):
+        jobs = GLOBAL_TIMERS.summary().get("visual_loop", {}).get("n", 0) - jobs
+        print(f"  visual-loop worker jobs in the traced window: {jobs} (the stage "
+              f"'visual_loop' below; its counts are per frame of the window)", flush=True)
     events = prof.key_averages()
     stage_names = _stage_names()
     # the stage ranges (utils/tracing.py) show on the device timeline too;

@@ -1,11 +1,14 @@
 """vil_fusion_tpu_torch — PyTorch + CUDA port of vil_fusion_tpu.
 
-Ported so far: the pipeline's "vil" (camera + IMU + LiDAR) and "vio" modes,
-synchronously (sync_depth=0), and its LiDAR-only mode ("lidar": feature
+Ported so far: the pipeline's "vil" (camera + IMU + LiDAR), "vio", "mask"
+(VIO with dynamic-object masks) and LiDAR-only ("lidar": feature
 extraction, scan-to-map odometry with all its options, global fusion with
-ScanContext, ICP loop verification and pose graph). The vil frame is the
-front end (`runtime.pipeline.vil_front_end`: tracker, lidar odometry,
-extrinsic glue, depth association) and the estimator's fused step
+ScanContext, ICP loop verification and pose graph) modes, synchronous
+(sync_depth=0) or deferred (sync_depth > 0), with the visual loop closure
+(BRIEF / BoW place recognition, PnP verification, 4-DoF pose graph,
+relocalization feedback) and checkpoints (runtime/checkpoint.py). The vil
+frame is the front end (`runtime.pipeline.vil_front_end`: tracker, lidar
+odometry, extrinsic glue, depth association) and the estimator's fused step
 (`models.estimator.fused_full_step`: IMU preintegration, feature ingest,
 triangulation, bundle adjustment, marginalization, window slide), with the
 cold-start initialization. The kNN kernels (grouped, exact and sparse
@@ -32,7 +35,7 @@ from vil_fusion_tpu_torch.runtime.config import RigConfig, load_rig  # noqa: E40
 
 
 def make_pipeline(rig_path: str, mode: str = "vil", **kw):
-    """Load a rig YAML and build the pipeline (modes "vil", "vio", "lidar")."""
+    """Load a rig YAML and build the pipeline (modes "vil", "vio", "mask", "lidar")."""
     from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
 
     return VILFusionPipeline(load_rig(rig_path), mode=mode, **kw)

@@ -268,8 +268,9 @@ def fused_full_step(window: WindowState, feats: FeatureStore, pre: StackedPreint
     `n_imu` is the segment's sample count (a host int or a 0-d tensor);
     `lidar_valid` a 0-d bool tensor; `run_ba` a host bool (initialized: BA +
     failure detection). Returns (window, feats, pre, lidar, prior, outputs)
-    with outputs {p, q, v, cost, failed, is_key} of the newest frame, before
-    the slide, as device tensors."""
+    with outputs {p, q, v, cost, failed} of the newest frame, before the
+    slide, as device tensors, and is_key, the keyframe decision read on the
+    host."""
     fc = K - 1
     dtype, dev = window.p.dtype, window.p.device
     gravity = torch.as_tensor(cfg.ba.gravity, dtype=dtype, device=dev)
@@ -315,9 +316,10 @@ def fused_full_step(window: WindowState, feats: FeatureStore, pre: StackedPreint
     out_v = window.v[K - 1].clone()
 
     # --- marginalize + slide (keyframe vs non-keyframe path) ---
+    key = bool(is_key)  # the step's host read: it picks the marginalization path
     window, feats, pre, lidar, prior = _marginalize_and_slide(
-        bool(is_key), window, feats, pre, lidar, prior, cfg)
-    outputs = dict(p=out_p, q=out_q, v=out_v, cost=cost, failed=failed, is_key=is_key)
+        key, window, feats, pre, lidar, prior, cfg)
+    outputs = dict(p=out_p, q=out_q, v=out_v, cost=cost, failed=failed, is_key=key)
     return window, feats, pre, lidar, prior, outputs
 
 
@@ -441,19 +443,10 @@ class VILEstimator:
 
         # --- steady state: the fused frame step ---
         if self.frame_count >= K - 1 and self.initialized:
-            lqr = lidar_q_rel if has_lidar else torch.tensor([1.0, 0, 0, 0], dtype=self.dtype,
-                                                             device=self.device)
-            lpr = lidar_p_rel if has_lidar else torch.zeros(3, dtype=self.dtype,
-                                                            device=self.device)
-            (self.window, self.feats, self.pre, self.lidar, self.prior,
-             out) = fused_full_step(
-                self.window, self.feats, self.pre, self.lidar, self.prior,
-                acc_b, gyr_b, dt_b, n_imu, ids, xy, vel, dep, tsh, lqr, lpr,
-                torch.tensor(has_lidar, device=self.device), True, cfg)
-            self.fused_steps += 1
+            out = self.process_frame_device_async(acc_b, gyr_b, dt_b, n_imu, ids, xy, vel, dep,
+                                                  lidar_q_rel, lidar_p_rel, tsh)
             host = torch.cat([out["p"], out["q"], out["v"], out["cost"][None],
                               out["failed"].to(self.dtype)[None]]).cpu().numpy()
-            self.last_is_key = bool(out["is_key"])
             self.absorb_result(host[10], host[11])
             return host[0:3], host[3:7], host[7:10]
 
@@ -500,11 +493,31 @@ class VILEstimator:
             is_key, self.window, self.feats, self.pre, self.lidar, self.prior, cfg)
         return self._current_pose(K - 1)
 
-    def process_frame_device_async(self, *args, **kw):
-        """The reference's deferred (sync_depth > 0) path: not ported yet."""
-        raise NotImplementedError(
-            "process_frame_device_async (sync_depth > 0) is not ported yet (ROADMAP.md, "
-            "section 1, item 1); use process_frame_device")
+    def process_frame_device_async(self, acc_b, gyr_b, dt_b, n_imu: int, ids, xy, vel, dep,
+                                   lidar_q_rel=None, lidar_p_rel=None, tsh=None) -> dict:
+        """The steady-state fused step without reading its results: enqueues
+        fused_full_step and returns its output dict of device tensors (p, q,
+        v, cost, failed, is_key). The caller fetches out["cost"] and
+        out["failed"] later and passes them to `absorb_result` (deferred
+        failure detection, the reference's sync_depth > 0 path). The
+        keyframe decision that picks the marginalization path is still read
+        on the host inside the step; everything after it is deferred."""
+        if not (self.frame_count >= K - 1 and self.initialized):
+            raise ValueError("process_frame_device_async needs an initialized, full window")
+        has_lidar = lidar_q_rel is not None
+        if not has_lidar:
+            lidar_q_rel = torch.tensor([1.0, 0, 0, 0], dtype=self.dtype, device=self.device)
+            lidar_p_rel = torch.zeros(3, dtype=self.dtype, device=self.device)
+        if tsh is None:
+            tsh = torch.zeros_like(dep)
+        (self.window, self.feats, self.pre, self.lidar, self.prior,
+         out) = fused_full_step(
+            self.window, self.feats, self.pre, self.lidar, self.prior,
+            acc_b, gyr_b, dt_b, n_imu, ids, xy, vel, dep, tsh, lidar_q_rel, lidar_p_rel,
+            torch.tensor(has_lidar, device=self.device), True, self.cfg)
+        self.fused_steps += 1
+        self.last_is_key = out["is_key"]
+        return out
 
     def absorb_result(self, host_cost, host_failed):
         """Record a frame result read by the caller. host_failed is the

@@ -31,7 +31,9 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import NamedTuple
 
@@ -68,6 +70,11 @@ morton_keys_plain = knn_plain.morton_keys
 _lib = None
 _scratch_bufs: dict = {}
 _counter_bufs: dict = {}
+# Threads that launch on one device share its scratch buffers: a call's
+# kernels are enqueued under this lock, so no other call's land between them
+# on the stream. The launch counts below are updated under it too.
+_launch_lock = threading.Lock()
+_stage = threading.local()
 
 
 def build(verbose: bool = False) -> ctypes.CDLL:
@@ -242,6 +249,44 @@ def kernels_enqueued() -> int:
     return build().vil_knn_kernels_enqueued()
 
 
+@contextmanager
+def launch_stage(name: str):
+    """Count this thread's launches inside the block under `name` too
+    (`<wrapper>.launches_by_stage[name]`, with the shapes of its calls in
+    `<wrapper>.calls_by_stage[name]`), beside the wrapper's total. A
+    pipeline's worker thread counts its launches apart this way."""
+    prev = getattr(_stage, "name", None)
+    _stage.name = name
+    try:
+        yield
+    finally:
+        _stage.name = prev
+
+
+def _count(fn, shape, diff: bool = False):
+    """One launch of wrapper `fn` at `shape` (Nq, Nd, k) or (n,)."""
+    with _launch_lock:
+        fn.launches += 1
+        fn.launches_diff += diff
+        fn.last_call = shape
+        name = getattr(_stage, "name", None)
+        if name is not None:
+            fn.launches_by_stage[name] = fn.launches_by_stage.get(name, 0) + 1
+            calls = fn.calls_by_stage.setdefault(name, {})
+            calls[shape] = calls.get(shape, 0) + 1
+
+
+def reset_counts():
+    """Set every wrapper's launch counts to 0."""
+    with _launch_lock:
+        for fn in (knn_grouped, knn_exact, knn_sparse, morton_keys):
+            fn.launches = 0
+            fn.launches_diff = 0
+            fn.last_call = None
+            fn.launches_by_stage = {}
+            fn.calls_by_stage = {}
+
+
 def _check(queries, database, db_valid, k: int):
     for name, t in (("queries", queries), ("database", database), ("db_valid", db_valid)):
         if not t.is_cuda:
@@ -277,7 +322,7 @@ def _launch(queries, database, db_valid, k: int, grouped: bool, form: str):
     if how.merge:
         part_d = torch.empty((nq, how.n_split, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((nq, how.n_split, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _launch_lock, torch.cuda.device(dev):
         err = lib.vil_knn_launch(
             queries.data_ptr(), database.data_ptr(), db_valid.data_ptr(), nq, nd, k,
             int(grouped), int(form == "diff"), how.chunk, how.n_split,
@@ -298,15 +343,8 @@ def knn_grouped(queries, database, db_valid, k: int = 5, form: str = "expanded")
     if queries.device.type == "cpu":
         return knn_grouped_plain(queries, database, db_valid, k=k, form=form)
     out = _launch(queries, database, db_valid, k, grouped=True, form=form)
-    knn_grouped.launches += 1
-    knn_grouped.launches_diff += form == "diff"
-    knn_grouped.last_call = (queries.shape[0], database.shape[0], k)
+    _count(knn_grouped, (queries.shape[0], database.shape[0], k), form == "diff")
     return out
-
-
-knn_grouped.launches = 0  # kernel launches, both forms
-knn_grouped.launches_diff = 0  # those with form="diff"
-knn_grouped.last_call = None  # (Nq, Nd, k) of the latest launch
 
 
 def knn_exact(queries, database, db_valid, k: int = 5, tile: int = 2048,
@@ -317,15 +355,8 @@ def knn_exact(queries, database, db_valid, k: int = 5, tile: int = 2048,
     if queries.device.type == "cpu":
         return knn_exact_plain(queries, database, db_valid, k=k, tile=tile, form=form)
     out = _launch(queries, database, db_valid, k, grouped=False, form=form)
-    knn_exact.launches += 1
-    knn_exact.launches_diff += form == "diff"
-    knn_exact.last_call = (queries.shape[0], database.shape[0], k)
+    _count(knn_exact, (queries.shape[0], database.shape[0], k), form == "diff")
     return out
-
-
-knn_exact.launches = 0
-knn_exact.launches_diff = 0
-knn_exact.last_call = None
 
 
 def check_cell(cell: float):
@@ -358,17 +389,14 @@ def morton_keys(pts, valid=None, cell: float = 2.0):
     if n == 0:
         return keys
     lib = build()
-    with torch.cuda.device(dev):
+    with _launch_lock, torch.cuda.device(dev):
         err = lib.vil_morton_keys(pts.data_ptr(), None if valid is None else valid.data_ptr(),
                                   n, float(cell), _scratch(dev, _MORTON_SCRATCH_BYTES).data_ptr(),
                                   keys.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vil_morton_keys failed with cudaError {err} (n={n}, cell={cell})")
-    morton_keys.launches += 1
+    _count(morton_keys, (n,))
     return keys
-
-
-morton_keys.launches = 0
 
 
 def morton_sort(pts, valid=None, cell: float = 2.0):
@@ -410,7 +438,7 @@ def knn_sparse(queries, database, db_valid, k: int = 5, radius: float = 3.0,
     q_perm = None if q_sorted else morton_sort(queries, cell=cell)
     d_perm = None if db_sorted or nd == 0 else morton_sort(database, db_valid, cell=cell)
     lib = build()
-    with torch.cuda.device(dev):
+    with _launch_lock, torch.cuda.device(dev):
         err = lib.vil_knn_sparse(
             queries.data_ptr(), None if q_perm is None else q_perm.data_ptr(), nq,
             database.data_ptr(), db_valid.data_ptr(), None if d_perm is None else d_perm.data_ptr(),
@@ -421,13 +449,8 @@ def knn_sparse(queries, database, db_valid, k: int = 5, radius: float = 3.0,
     if err != 0:
         raise RuntimeError(f"vil_knn_sparse failed with cudaError {err} "
                            f"(nq={nq}, nd={nd}, k={k}, db_tile={db_tile}, plan={tuple(how)})")
-    knn_sparse.launches += 1
-    knn_sparse.last_call = (nq, nd, k)
+    _count(knn_sparse, (nq, nd, k))
     return out_d, out_i
-
-
-knn_sparse.launches = 0
-knn_sparse.last_call = None
 
 
 def knn(queries, database, db_valid, k: int = 5, tile: int = 4096,
@@ -447,3 +470,9 @@ def knn(queries, database, db_valid, k: int = 5, tile: int = 4096,
     if approx and not (q_sorted or db_sorted):
         return knn_grouped(queries, database, db_valid, k=k, form=form)
     return knn_exact(queries, database, db_valid, k=k, tile=min(tile, 2048), form=form)
+
+
+# launches (every thread): `launches` in all, `launches_diff` of them with
+# form="diff", `last_call` the (Nq, Nd, k) of the latest, and per
+# launch_stage name the count and the shapes
+reset_counts()

@@ -96,7 +96,12 @@ def shi_tomasi_response(img, window_radius: int = 1):
     b = box_filter(ix * iy, window_radius)
     c = box_filter(iy * iy, window_radius)
     tr = a + c
-    det_part = torch.sqrt(torch.clamp((a - c) ** 2 + 4 * b * b, min=0.0))
+    # the correctly rounded float32 square root, as the reference's: taken in
+    # float64 and rounded once. torch's float32 sqrt on the CPU (MKL's vector
+    # library) is one ulp off on ~0.7% of inputs, and where the two
+    # eigenvalues nearly cancel an error in det_part is the whole result.
+    disc = torch.clamp((a - c) ** 2 + 4 * b * b, min=0.0)
+    det_part = torch.sqrt(disc.double()).to(disc.dtype)
     return 0.5 * (tr - det_part)
 
 

@@ -7,14 +7,16 @@ single-controller, frame-synchronous pipeline):
   lidar ──┼─ sync (±0.03 s) ┼─ feature extraction + scan-to-map ─┼─ estimator ─ odometry ─ global fusion
   imu ────┘                 └─ depth association (unit sphere) ──┘
 
-Modes "vil" (camera + IMU + LiDAR), "vio" (camera + IMU) and "lidar"
-(F-LOAM + SC-A-LOAM: odometry and global fusion only) run, synchronously
-(the reference's sync_depth=0): every frame's host consequences (failure
-restart, high-rate reseed, global fusion, outputs) happen in that frame.
-`vil_front_end` is steps 1-4 of the reference's vil frame program (tracker,
-lidar odometry, extrinsic glue, depth association) and `vil_frame` the
-whole program with the estimator's fused step. Not ported yet (ROADMAP.md):
-mode "mask", the deferred path (sync_depth > 0) and the visual loop.
+Modes "vil" (camera + IMU + LiDAR), "vio" (camera + IMU), "mask" (VIO
+with dynamic-object masks) and "lidar" (F-LOAM + SC-A-LOAM: odometry and
+global fusion only). With sync_depth=0 every frame's host consequences
+(failure restart, high-rate reseed, global fusion, visual loop, outputs)
+happen in that frame; with sync_depth=N > 0 steady frames are issued and
+completed N frames later (the reference's deferred path). The visual loop
+closure runs with any of the camera modes. `vil_front_end` is steps 1-4 of
+the reference's vil frame program (tracker, lidar odometry, extrinsic glue,
+depth association) and `vil_frame` the whole program with the estimator's
+fused step.
 
 Failure handling: the estimator's failureDetection triggers a clearState
 reboot seeded from the LiDAR odometry pose; a camera-stream gap triggers
@@ -23,6 +25,9 @@ the same restart.
 from __future__ import annotations
 
 import os
+import queue
+import threading
+import traceback
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
@@ -36,6 +41,7 @@ from vil_fusion_tpu_torch.models import estimator as est_mod
 from vil_fusion_tpu_torch.models import global_fusion as gf
 from vil_fusion_tpu_torch.models import lidar_features as lf
 from vil_fusion_tpu_torch.models import lidar_odometry as lo
+from vil_fusion_tpu_torch.models import posegraph4dof as pg4
 from vil_fusion_tpu_torch.models import tracker as trk
 from vil_fusion_tpu_torch.models.imu import ImuNoise
 from vil_fusion_tpu_torch.ops import lie
@@ -265,23 +271,49 @@ class PipelineOutputs:
     ts: list = field(default_factory=list)
     vio_p: list = field(default_factory=list)  # no-loop trajectory
     vio_q: list = field(default_factory=list)
+    loop_p: list = field(default_factory=list)  # drift-corrected (visual loop)
+    loop_q: list = field(default_factory=list)
     lidar_p: list = field(default_factory=list)
     lidar_q: list = field(default_factory=list)
+    # per-frame attachment to the latest visual-loop keyframe: its index in
+    # the keyframe DB and the frame's pose relative to it at output time, so
+    # rebuild_loop_path() can rewrite the past trajectory from the optimized
+    # 4-DoF graph (pose_graph.cpp updatePath)
+    anchor_kf: list = field(default_factory=list)
+    anchor_rel: list = field(default_factory=list)  # (R_rel, p_rel) or None
     # per-frame estimator-initialized flag: the reference publishes VIO
     # odometry only in NON_LINEAR state (pubOdometry, visualization.cpp), so
-    # pre-initialization rows are left out of the VIO trajectory
+    # pre-initialization rows are left out of the VIO trajectories
     initialized: list = field(default_factory=list)
 
+    def rebuild_loop_path(self, db):
+        """Rewrite loop_p / loop_q from the optimized keyframe poses
+        (pose_graph.cpp updatePath). Idempotent: anchor_rel is immutable,
+        db.q / db.p are the current optimized poses."""
+        if db is None or not self.anchor_kf:
+            return
+        for k, (a, rel) in enumerate(zip(self.anchor_kf, self.anchor_rel)):
+            if a < 0 or rel is None:
+                continue
+            R_a = _np_q2R(np.asarray(db.q[a], np.float64))
+            R_rel, p_rel = rel
+            self.loop_p[k] = R_a @ p_rel + np.asarray(db.p[a], np.float64)
+            self.loop_q[k] = _np_R2q(R_a @ R_rel)
+
     def write(self, out_dir: str, fusion: Optional[gf.GlobalFusion] = None):
-        """The reference's TUM outputs: vins_result_no_loop (initialized
-        frames only), lidar_odometry and fs_loam_loop. The visual-loop
-        trajectory vins_result_loop comes with the visual loop's port."""
+        """The reference's TUM outputs: vins_result_no_loop and
+        vins_result_loop (initialized frames only), lidar_odometry and
+        fs_loam_loop."""
         os.makedirs(out_dir, exist_ok=True)
         ini = self.initialized or [True] * len(self.ts)
         sel = [k for k, ok in enumerate(ini) if ok]
         tum.write_tum(os.path.join(out_dir, "vins_result_no_loop.txt"),
                       [self.ts[k] for k in sel], [self.vio_p[k] for k in sel],
                       [self.vio_q[k] for k in sel])
+        if self.loop_p:
+            tum.write_tum(os.path.join(out_dir, "vins_result_loop.txt"),
+                          [self.ts[k] for k in sel], [self.loop_p[k] for k in sel],
+                          [self.loop_q[k] for k in sel])
         tum.write_tum(os.path.join(out_dir, "lidar_odometry.txt"),
                       self.ts, self.lidar_p, self.lidar_q)
         if fusion is not None and fusion.n_kf:
@@ -290,40 +322,56 @@ class PipelineOutputs:
                           fusion.kf_ts, p_all, q_all)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, section 1: modules still to port); the "
-        f"modes 'vil', 'vio' (with sync_depth=0) and 'lidar' run")
+def _fetch_async(tensors):
+    """Start the host copies of `tensors`: (host tensors, CUDA event to wait
+    on before reading them, or None on the CPU). On the card the copies go
+    into pinned buffers, ordered on the current stream."""
+    if not tensors[0].is_cuda:
+        return list(tensors), None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
 
 
 class VILFusionPipeline:
     """Modes of the reference: "vil" (camera + IMU + LiDAR), "vio" (no
     lidar), "lidar" (LiDAR-only odometry + global fusion) and "mask"
-    (dynamic-scene VIO). "vil" and "vio" run synchronously (sync_depth=0:
-    each frame's host consequences happen in that frame); "mask",
-    sync_depth > 0 and the visual loop raise NotImplementedError.
+    (dynamic-scene VIO: the tracker keeps features off the masks pushed
+    with the images).
+
+    sync_depth=0 completes every frame's host consequences (failure
+    restart, high-rate reseed, global fusion, visual loop, outputs) in that
+    frame. With sync_depth=N, steady frames are issued (`_issue_frame`) and
+    completed N frames later (`_complete_frame`), their results copied to
+    the host in between; the cold start and the window's filling run
+    synchronously. The port's fused estimator step still reads its keyframe
+    decision on the host each frame (VILEstimator.process_frame_device_async).
+
+    visual_loop=True adds the visual loop closure (models/visual_loop.py):
+    keyframe BRIEF / BoW detection, PnP verification, the 4-DoF graph and
+    relocalization feedback into the estimator window. With sync_depth > 0
+    it runs on a worker thread, issuing on the main thread's CUDA stream;
+    `vl_errors` counts the worker's exceptions (each is printed and skipped,
+    as in the reference).
 
     `device` places every state tensor (tracker, maps, estimator window,
-    pose graph, ScanContext database, keyframe clouds); images and scans are
-    uploaded to it as they are pushed."""
+    pose graphs, ScanContext and keyframe databases, keyframe clouds);
+    images and scans are uploaded to it as they are pushed."""
 
     SYNC_WINDOW = 0.03  # camera-lidar pairing (feature_tracker_node.cpp:225)
     CAMERA_GAP_RESTART = 1.0  # stream watchdog (restart path)
 
     def __init__(self, rig: RigConfig, mode: str = "vil", f_cap: int = 128,
                  sc_capacity: int = 1024, visual_loop: bool = False,
-                 gf_cfg: Optional[gf.GlobalFusionConfig] = None,
+                 gf_cfg: Optional[gf.GlobalFusionConfig] = None, vl_cfg=None,
                  odom_overrides: Optional[dict] = None, sync_depth: int = 0,
                  ba_overrides: Optional[dict] = None, scan_quant: float = 0.0,
                  device="cuda"):
         if mode not in ("vil", "vio", "lidar", "mask"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode == "mask":
-            raise _not_ported("mode='mask' (dynamic-scene VIO with the mask gate)")
-        if sync_depth > 0:
-            raise _not_ported(f"sync_depth={sync_depth} (the deferred frame program)")
-        if visual_loop:
-            raise _not_ported("visual_loop=True (the visual loop closure)")
         self.rig = rig
         self.mode = mode
         self.scan_quant = float(scan_quant)
@@ -344,7 +392,8 @@ class VILFusionPipeline:
         self.fusion = gf.GlobalFusion(gf_cfg, device=self.device) if use_lidar else None
 
         if mode != "lidar":
-            self.fe = front_end_config(rig, f_cap=f_cap, odom_overrides=odom_overrides,
+            self.fe = front_end_config(rig, f_cap=f_cap, mask_gate=mode == "mask",
+                                       odom_overrides=odom_overrides,
                                        scan_quant=scan_quant, device=self.device)
             self.tracker_cfg = self.fe.tcfg
             self.tracker_state = trk.init_tracker(rig.image_height, rig.image_width,
@@ -365,9 +414,45 @@ class VILFusionPipeline:
                 min_parallax=rig.keyframe_parallax / 460.0)
             self.estimator = self._new_estimator()
 
+        self.sync_depth = max(0, int(sync_depth))
+        self._pending: list = []  # in-flight frame records (sync_depth > 0)
+        self._gen = 0  # restart generation: in-flight frames of an older one are stale
+        self._imu_hist: list = []  # retained samples for the deferred high-rate reseed
+        self.sequence = 0  # session id of the visual loop's graph (new_sequence)
+
+        # visual loop closure: place recognition + 4-DoF graph + drift feedback
+        self.visual_loop = None
+        self.vl_errors = 0  # exceptions caught in the visual-loop worker
+        if visual_loop and mode != "lidar":
+            from vil_fusion_tpu_torch.models import visual_loop as vl
+
+            self.visual_loop = vl.VisualLoopDB(
+                vl.VisualLoopConfig(capacity=sc_capacity) if vl_cfg is None else vl_cfg,
+                qic=rig.q_ic, tic=rig.t_ic, min_incidence=rig.depth_min_incidence,
+                device=self.device)
+            self.loop_drift_R = np.eye(3, dtype=np.float32)
+            self.loop_drift_t = np.zeros(3, np.float32)
+            self._last_kf_p = None
+            # _vl_lock guards the DB's poses, which _append_loop_output reads
+            # while a loop closes; _vl_step_lock serializes whole steps of the
+            # worker and of the main thread's synchronous frames
+            self._vl_lock = threading.Lock()
+            self._vl_step_lock = threading.Lock()
+            self._vl_jobs: Optional[queue.Queue] = None
+            self._vl_results: queue.Queue = queue.Queue()
+            self._vl_idle = threading.Event()
+            self._vl_idle.set()
+            if self.sync_depth > 0:
+                # the reference's pose_graph process() thread: keyframe BRIEF,
+                # BoW query, PnP verification and the 4-DoF solve run off the
+                # odometry path; accepted drifts apply at a later completed frame
+                self._vl_jobs = queue.Queue()
+                threading.Thread(target=self._vl_worker, daemon=True,
+                                 name="visual-loop-worker").start()
+
         # host-side queues ("topics")
         self.imu_buf: list = []  # (t, acc, gyr)
-        self.image_buf: list = []
+        self.image_buf: list = []  # (t, img, mask)
         self.scan_buf: list = []
         self.last_image_t = None
         self.last_processed_t = None
@@ -389,14 +474,11 @@ class VILFusionPipeline:
 
     # ------------------------------------------------------------------
     def push_imu(self, t, acc, gyr):
-        """Buffer the sample. In "vil" / "vio" returns the IMU-rate pose
+        """Buffer the sample. In the camera modes returns the IMU-rate pose
         estimate (p, q, v) once the estimator is initialized, else None
         (pubLatestOdometry / predict(), estimator_node.cpp:44-80);
         LiDAR-only odometry has no IMU-rate pose."""
-        self.imu_buf.append((float(t), np.asarray(acc), np.asarray(gyr)))
-        if self.mode == "lidar":
-            return None
-        return self._propagate_high_rate(float(t), np.asarray(acc), np.asarray(gyr))
+        return self.push_imu_batch([t], [acc], [gyr])
 
     def push_imu_batch(self, ts, acc, gyr):
         """Feed a contiguous IMU segment in one call. Returns the high-rate
@@ -408,6 +490,11 @@ class VILFusionPipeline:
         self.imu_buf.extend(rows)
         if self.mode == "lidar":
             return None
+        # retained history for the deferred reseed (re-propagation from a
+        # frame solved sync_depth frames ago; estimator_node update())
+        self._imu_hist.extend(rows)
+        if len(self._imu_hist) > 4096:
+            del self._imu_hist[:2048]
         out = None
         for k in range(len(rows)):
             out = self._propagate_high_rate(rows[k][0], acc[k], gyr[k])
@@ -446,17 +533,42 @@ class VILFusionPipeline:
                         bg=host[13:16], acc=np.asarray(acc, np.float32),
                         gyr=np.asarray(gyr, np.float32))
 
+    def _reset_high_rate_from(self, t, p, q, v, ba_, bg_):
+        """Re-seed the high-rate propagator from a frame solved sync_depth
+        frames ago, then re-propagate the retained IMU samples up to now
+        (estimator_node.cpp update() :84-97)."""
+        hist = [s for s in self._imu_hist if s[0] > t + 1e-9]
+        anchor = None
+        for s in self._imu_hist:
+            if s[0] <= t + 1e-9:
+                anchor = s
+        if anchor is None:
+            acc0, gyr0 = np.array([0.0, 0, 9.81]), np.zeros(3)
+        else:
+            acc0, gyr0 = anchor[1], anchor[2]
+        hr = dict(t=float(t), p=np.asarray(p, np.float64), q=np.asarray(q, np.float64),
+                  v=np.asarray(v, np.float64), ba=np.asarray(ba_, np.float64),
+                  bg=np.asarray(bg_, np.float64), acc=acc0, gyr=gyr0)
+        g = np.asarray(self.est_cfg.ba.gravity, np.float64)
+        for (ts_, acc, gyr) in hist:
+            dt = ts_ - hr["t"]
+            if dt <= 0 or dt > 1.0:
+                hr.update(t=ts_, acc=acc, gyr=gyr)
+                continue
+            pn, qn, vn = _np_propagate(hr["p"], hr["q"], hr["v"], hr["ba"], hr["bg"],
+                                       hr["acc"], hr["gyr"], acc, gyr, dt, g)
+            hr.update(t=ts_, p=pn, q=qn, v=vn, acc=acc, gyr=gyr)
+        self._hr = hr
+
     def push_image(self, t, img, mask=None):
         """Queue a camera image (H, W) uint8 or float numpy array and
-        process what can be paired. `mask` belongs to mode "mask" (not
-        ported) and must be None."""
-        if mask is not None:
-            raise _not_ported("a dynamic-object mask (mode='mask')")
+        process what can be paired. `mask` (H, W) bool marks dynamic
+        objects: mode "mask" keeps features off it."""
         # stream watchdog: a long camera gap restarts the estimator
         if self.last_image_t is not None and t - self.last_image_t > self.CAMERA_GAP_RESTART:
             self._restart(cause="camera_gap")
         self.last_image_t = float(t)
-        self.image_buf.append((float(t), img))
+        self.image_buf.append((float(t), img, mask))
         return self._try_process()
 
     def push_scan(self, t, points, valid):
@@ -483,12 +595,17 @@ class VILFusionPipeline:
         return (torch.as_tensor(np.asarray(pts), dtype=torch.float32).to(self.device),
                 torch.as_tensor(np.asarray(val), dtype=torch.bool).to(self.device))
 
+    def _image_dev(self, img):
+        img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        return img_dev.to(torch.float32) if img_dev.dtype == torch.float64 else img_dev
+
     # ------------------------------------------------------------------
     def _restart(self, cause: str = "estimator_failure"):
         """restart_callback analog (estimator_node.cpp:199-218): flush and
         reinitialize the estimator; tracker and maps survive. In "vil" the
         reboot is seeded from the surviving LiDAR odometry pose, so the
-        estimator resumes in the same world frame."""
+        estimator resumes in the same world frame. In-flight frames and
+        loop drifts of the failed estimator become stale."""
         t_now = self.last_processed_t if self.last_processed_t is not None \
             else self.last_image_t
         entry = dict(t=t_now, cause=cause,
@@ -507,6 +624,13 @@ class VILFusionPipeline:
             self.estimator.set_initial_state(p=host[0:3], q=host[3:7], v=host[7:10])
         self._hr = None
         self.restarts += 1
+        self._gen += 1
+        self.sequence += 1  # new_sequence()
+        # drop loop drifts computed against the failed estimator's frame
+        # (the reference's clearState empties the relo buffer the same way)
+        if self.visual_loop is not None:
+            while not self._vl_results.empty():
+                self._vl_results.get()
 
     def _pop_imu_until(self, t):
         seg = [s for s in self.imu_buf if s[0] <= t + 1e-9]
@@ -537,6 +661,13 @@ class VILFusionPipeline:
             dts = np.concatenate([dts, [t - ts_[-1]]])
         return acc, gyr, dts
 
+    def _imu_for_frame(self, t):
+        """The frame's padded IMU segment on the device and its host count."""
+        acc_b, gyr_b, dt_b, n_imu = self.estimator._pack_imu(*self._imu_segment_for_frame(t))
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return (torch.as_tensor(acc_b, **f32), torch.as_tensor(gyr_b, **f32),
+                torch.as_tensor(dt_b, **f32), n_imu)
+
     def _try_process(self):
         if self.mode == "lidar":
             if not self.scan_buf:
@@ -548,7 +679,7 @@ class VILFusionPipeline:
             return None
         if need_scan and not self.scan_buf:
             return None
-        t_img, img = self.image_buf[0]
+        t_img, img, mask = self.image_buf[0]
         scan = None
         if need_scan:
             # camera-lidar pairing within the sync window (:220-263)
@@ -560,7 +691,7 @@ class VILFusionPipeline:
                 scan = self.scan_buf.pop(0)
             # else: no matching scan; proceed VIO-style
         self.image_buf.pop(0)
-        return self._process_frame_sync(t_img, img, scan)
+        return self._process_frame(t_img, img, mask, scan)
 
     # ------------------------------------------------------------------
     def _process_lidar_only(self, t, pts, val):
@@ -584,27 +715,100 @@ class VILFusionPipeline:
         self.outputs.initialized.append(True)  # lidar odometry is always initialized
         return p_np, q_np
 
-    def _process_frame_sync(self, t, img, scan):
-        """One camera frame (with its paired scan in "vil"): tracker, lidar
-        odometry, extrinsic glue, depth association, IMU segment, estimator
-        (fused_full_step once initialized with a full window), global fusion,
-        restart on failure, outputs. Returns the frame's (p, q)."""
-        fe, est, dev = self.fe, self.estimator, self.device
-        img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
-        if img_dev.dtype == torch.float64:
-            img_dev = img_dev.to(torch.float32)
-        # 1. visual tracking
-        with GLOBAL_TIMERS.timed("tracker"):
-            self.tracker_state, obs = _track(self.tracker_state, img_dev, t, fe,
-                                             self.tracker_frames > 0, self.generator)
-            self.tracker_frames += 1
+    def _process_frame(self, t, img, mask, scan):
+        """Synchronous frame, or (sync_depth > 0 with an initialized, full
+        window) issue now and complete the frame sync_depth frames back."""
+        est = self.estimator
+        if self.sync_depth == 0 or not (est.initialized and est.frame_count >= est_mod.K - 1):
+            # the cold start and the filling phase are host-orchestrated anyway
+            self._drain_pending()
+            return self._process_frame_sync(t, img, mask, scan)
+        self._pending.append(self._issue_frame(t, img, mask, scan))
+        if len(self._pending) > self.sync_depth:
+            return self._complete_frame(self._pending.pop(0))
+        return None
 
-        # 2-4. lidar odometry, extrinsic glue, depth association
+    def finalize(self):
+        """Drain the in-flight frames, the visual-loop worker and the
+        in-flight loop queries and ICP verifications (call once at the end
+        of a replay). Returns the last completed frame's (p, q) or None."""
+        out = self._drain_pending()
+        if self.fusion is not None:
+            self.fusion.flush()
+        if self.visual_loop is not None and self._vl_jobs is not None:
+            # wait for the worker to go idle, then apply any accepted drift
+            # to the estimator (outputs are rewritten below)
+            self._vl_idle.wait(timeout=120.0)
+            while not self._vl_results.empty():
+                gen, drift = self._vl_results.get()
+                if gen == self._gen:
+                    self._apply_reloc_drift(drift, np.zeros(3), np.array([1.0, 0, 0, 0]))
+        # pose_graph.cpp updatePath: the loop-corrected trajectory from the
+        # optimized 4-DoF graph, so corrections reach past frames
+        self.outputs.rebuild_loop_path(self.visual_loop)
+        return out
+
+    def _drain_pending(self):
+        out = None
+        while self._pending:
+            out = self._complete_frame(self._pending.pop(0))
+        return out
+
+    def _append_outputs(self, t, p_est, q_est, initialized: bool, lidar_pose):
+        self.outputs.ts.append(t)
+        self.outputs.vio_p.append(p_est)
+        self.outputs.vio_q.append(q_est)
+        self.outputs.initialized.append(initialized)
+        if self.visual_loop is not None:
+            self._append_loop_output(p_est, q_est)
+        self.outputs.lidar_q.append(lidar_pose[0])
+        self.outputs.lidar_p.append(lidar_pose[1])
+        self.last_processed_t = t
+
+    def _append_loop_output(self, p_est, q_est):
+        """Append the loop-corrected output plus its keyframe attachment
+        (anchor index + relative pose) for rebuild_loop_path."""
+        db = self.visual_loop
+        self.outputs.loop_p.append(self.loop_drift_R @ p_est + self.loop_drift_t)
+        self.outputs.loop_q.append(_np_R2q(self.loop_drift_R @ _np_q2R(q_est)))
+        with self._vl_lock:  # db.q / db.p may be mid-rewrite in the worker
+            n = db.n
+            if n > 0:
+                a = n - 1
+                q_a = np.asarray(db.q[a], np.float64).copy()
+                p_a = np.asarray(db.p[a], np.float64).copy()
+        if n > 0:
+            R_a = _np_q2R(q_a)
+            self.outputs.anchor_kf.append(a)
+            self.outputs.anchor_rel.append(
+                (R_a.T @ _np_q2R(np.asarray(q_est, np.float64)),
+                 R_a.T @ (np.asarray(p_est, np.float64) - p_a)))
+        else:
+            self.outputs.anchor_kf.append(-1)
+            self.outputs.anchor_rel.append(None)
+
+    # -- the deferred path (sync_depth > 0) ------------------------------
+    def _issue_frame(self, t, img, mask, scan):
+        """Enqueue one steady frame: tracker -> lidar odometry -> depth
+        association -> the estimator's fused step, and start the host
+        copies of what its completion reads. Host-side consequences run in
+        _complete_frame, sync_depth frames later."""
+        img_dev = self._image_dev(img)
+        rec: dict = dict(t=t, img=img_dev, gen=self._gen, scan=None, drift_R=None,
+                         drift_t=None)
+        if (self.mode == "vil" and scan is not None and mask is None
+                and self.tracker_frames == self.lidar_frames):
+            return self._issue_frame_fused(rec, t, img_dev, scan)
+        fe, est = self.fe, self.estimator
+        with GLOBAL_TIMERS.timed("tracker"):
+            self.tracker_state, obs = _track(
+                self.tracker_state, img_dev, t, fe, self.tracker_frames > 0, self.generator,
+                dyn_mask=None if mask is None else torch.as_tensor(mask, device=self.device))
+            self.tracker_frames += 1
         lidar_q_rel = lidar_p_rel = None
-        depth = None
+        dep_dev = torch.zeros((self.tracker_cfg.cap,), dtype=torch.float32, device=self.device)
         if scan is not None:
-            _t_s, pts, val = scan
-            pts_dev, val_dev = self._scan_dev(pts, val)
+            pts_dev, val_dev = self._scan_dev(scan[1], scan[2])
             with GLOBAL_TIMERS.timed("lidar_odometry"):
                 self.lidar_state, (lq, lp, lqr, lpr) = lo.odometry_step(
                     self.lidar_state, pts_dev, val_dev, self.lidar_cfg,
@@ -612,27 +816,160 @@ class VILFusionPipeline:
                 self.lidar_frames += 1
             lidar_q_rel, lidar_p_rel, cloud_cam = _glue(lqr, lpr, pts_dev, fe)
             with GLOBAL_TIMERS.timed("depth_association"):
-                depth, _ = depth_association.feature_depth(
-                    obs["xy"], obs["valid"], cloud_cam, val_dev,
-                    min_incidence=fe.min_incidence)
+                dep_dev, _ = depth_association.feature_depth(
+                    obs["xy"], obs["valid"], cloud_cam, val_dev, min_incidence=fe.min_incidence)
+            rec["scan"] = (lq, lp, pts_dev, val_dev)
+        acc_b, gyr_b, dt_b, n_imu = self._imu_for_frame(t)
+        tsh_dev = None
+        if fe.tsh_scale != 0.0:  # rolling shutter: readout shift TR*(row-ROW/2)/ROW
+            tsh_dev = fe.tsh_scale * (obs["uv"][:, 1] - 0.5 * self.rig.image_height)
+        with GLOBAL_TIMERS.timed("estimator"):
+            out = est.process_frame_device_async(
+                acc_b, gyr_b, dt_b, n_imu, obs["ids"], obs["xy"], obs["vel"], dep_dev,
+                lidar_q_rel=lidar_q_rel, lidar_p_rel=lidar_p_rel, tsh=tsh_dev)
+        return self._capture(rec, out, obs["ids"], dep_dev)
+
+    def _issue_frame_fused(self, rec, t, img_dev, scan):
+        """The steady vil frame in one call of `vil_frame` (the reference's
+        one-program frame, _vil_frame_program)."""
+        est = self.estimator
+        _t_s, pts, val = scan
+        with GLOBAL_TIMERS.timed("feed_uploads"):
+            # quantized scans upload raw (int16 + packed bits), vil_frame
+            # dequantizes on the device and returns the f32 cloud
+            if getattr(pts, "dtype", None) == np.int16:
+                pts_dev = torch.from_numpy(pts).to(self.device)
+                val_dev = torch.from_numpy(val).to(self.device)
+            else:
+                pts_dev, val_dev = self._scan_dev(pts, val)
+            acc_b, gyr_b, dt_b, n_imu = self._imu_for_frame(t)
+        with GLOBAL_TIMERS.timed("vil_fused_frame"):
+            (self.tracker_state, self.lidar_state, est.window, est.feats, est.pre, est.lidar,
+             est.prior, out, front) = vil_frame(
+                self.tracker_state, self.lidar_state, est.window, est.feats, est.pre,
+                est.lidar, est.prior, img_dev, pts_dev, val_dev, acc_b, gyr_b, dt_b, n_imu,
+                t, self.fe, self.est_cfg, frame_index=self.lidar_frames,
+                generator=self.generator)
+        self.tracker_frames += 1
+        self.lidar_frames += 1
+        est.fused_steps += 1
+        est.last_is_key = out["is_key"]
+        rec["scan"] = (front["lidar_q"], front["lidar_p"], front["pts"], front["val"])
+        return self._capture(rec, out, front["ids"], front["depth"])
+
+    def _capture(self, rec, out, obs_ids, obs_dep):
+        """Keep the issued frame's state snapshot (newest frame slid to slot
+        K - 2; no tensor of it is written in place later) and start the host
+        copies its completion reads."""
+        w = self.estimator.window
+        slot = est_mod.K - 2
+        rec.update(window=w, feats=self.estimator.feats)
+        fetch = [out["p"], out["q"], out["v"], out["cost"], out["failed"],
+                 w.ba[slot], w.bg[slot], obs_ids, obs_dep]
+        if rec["scan"] is not None:
+            fetch += [rec["scan"][0], rec["scan"][1]]
+        rec["fetch"], rec["event"] = _fetch_async(fetch)
+        return rec
+
+    def _complete_frame(self, rec):
+        """Deferred host-side half of a frame: wait for its copies, then
+        failure handling, global fusion, the visual loop, outputs."""
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        host = [h.numpy() for h in rec["fetch"]]
+        p_est, q_est, v_est = host[0], host[1], host[2]
+        if rec["gen"] == self._gen:
+            if self._init_t is None:
+                self._init_t = rec["t"]  # the deferred path implies initialized
+            self.estimator.absorb_result(host[3], host[4])
+            if self.estimator.failed:
+                # failureDetection reboot, sync_depth frames late (the
+                # reference's detection is equally asynchronous)
+                self._restart()
+            else:
+                self._reset_high_rate_from(rec["t"], p_est, q_est, v_est, host[5], host[6])
+        live = rec["gen"] == self._gen  # _restart above bumps it
+
+        # global fusion is lidar-driven and survives estimator restarts
+        if rec["scan"] is not None:
+            self._lidar_pose = (host[9], host[10])
+            if self.fusion is not None:
+                with GLOBAL_TIMERS.timed("global_fusion"):
+                    self.fusion.add_frame(host[9], host[10], rec["scan"][2], rec["scan"][3],
+                                          t=rec["t"])
+
+        # the snapshot predates any loop drift accepted while the frame was
+        # in flight: apply it
+        if rec["drift_R"] is not None:
+            R_d0, t_d0 = rec["drift_R"], rec["drift_t"]
+            p_est = R_d0 @ p_est + t_d0
+            q_est = _np_R2q(R_d0 @ _np_q2R(q_est))
+
+        if (self.visual_loop is not None and live
+                and self.estimator.initialized and not self.estimator.failed):
+            p_est, q_est = self._drain_vl_results(p_est, q_est)
+            # gate on the main thread (host floats only), at most one job at
+            # a time: the reference's process() thread consumes keyframes
+            # serially and drops to the newest while busy
+            gap = self.visual_loop.cfg.keyframe_gap
+            if (self._vl_idle.is_set() and self._vl_jobs.empty()
+                    and (self._last_kf_p is None
+                         or np.linalg.norm(p_est - self._last_kf_p) >= gap)):
+                self._vl_idle.clear()
+                self._vl_jobs.put(dict(
+                    gen=self._gen, img=rec["img"], p_est=p_est, q_est=q_est,
+                    window=rec["window"], feats=rec["feats"],
+                    pre_drift=(rec["drift_R"], rec["drift_t"]), fresh=(host[7], host[8]),
+                    scan=None if rec["scan"] is None else (rec["scan"][2], rec["scan"][3])))
+                self._last_kf_p = np.asarray(p_est)
+
+        self._append_outputs(rec["t"], p_est, q_est, True, self._lidar_pose)
+        return p_est, q_est
+
+    # -- the synchronous frame -------------------------------------------
+    def _process_frame_sync(self, t, img, mask, scan):
+        """One camera frame (with its paired scan in "vil"): tracker, lidar
+        odometry, extrinsic glue, depth association, IMU segment, estimator
+        (fused_full_step once initialized with a full window), global fusion,
+        restart on failure, the visual loop, outputs. Returns the frame's
+        (p, q)."""
+        fe, est, dev = self.fe, self.estimator, self.device
+        img_dev = self._image_dev(img)
+        # 1. visual tracking
+        with GLOBAL_TIMERS.timed("tracker"):
+            self.tracker_state, obs = _track(
+                self.tracker_state, img_dev, t, fe, self.tracker_frames > 0, self.generator,
+                dyn_mask=None if mask is None else torch.as_tensor(mask, device=dev))
+            self.tracker_frames += 1
+
+        # 2-4. lidar odometry, extrinsic glue, depth association
+        lidar_q_rel = lidar_p_rel = None
+        dep_dev = torch.zeros((self.tracker_cfg.cap,), dtype=torch.float32, device=dev)
+        pts_dev = val_dev = None
+        if scan is not None:
+            pts_dev, val_dev = self._scan_dev(scan[1], scan[2])
+            with GLOBAL_TIMERS.timed("lidar_odometry"):
+                self.lidar_state, (lq, lp, lqr, lpr) = lo.odometry_step(
+                    self.lidar_state, pts_dev, val_dev, self.lidar_cfg,
+                    frame_count=self.lidar_frames)
+                self.lidar_frames += 1
+            lidar_q_rel, lidar_p_rel, cloud_cam = _glue(lqr, lpr, pts_dev, fe)
+            with GLOBAL_TIMERS.timed("depth_association"):
+                dep_dev, _ = depth_association.feature_depth(
+                    obs["xy"], obs["valid"], cloud_cam, val_dev, min_incidence=fe.min_incidence)
 
         # 5. IMU segment (full-interval spanning, boundary-sample reuse) and
         #    the estimator: tracker outputs are fixed-capacity device tensors
         #    and the estimator's obs_cap is the tracker cap, so nothing is
         #    repacked
-        acc, gyr, dts = self._imu_segment_for_frame(t)
-        acc_b, gyr_b, dt_b, n_imu = est._pack_imu(acc, gyr, dts)
-        dep_dev = depth if depth is not None else torch.zeros(
-            (self.tracker_cfg.cap,), dtype=torch.float32, device=dev)
+        acc_b, gyr_b, dt_b, n_imu = self._imu_for_frame(t)
         tsh_dev = None
         if fe.tsh_scale != 0.0:  # rolling shutter: readout shift TR*(row-ROW/2)/ROW
             tsh_dev = fe.tsh_scale * (obs["uv"][:, 1] - 0.5 * self.rig.image_height)
-        f32 = dict(dtype=torch.float32, device=dev)
         with GLOBAL_TIMERS.timed("estimator"):
             p_est, q_est, _ = est.process_frame_device(
-                torch.as_tensor(acc_b, **f32), torch.as_tensor(gyr_b, **f32),
-                torch.as_tensor(dt_b, **f32), n_imu, obs["ids"], obs["xy"], obs["vel"],
-                dep_dev, lidar_q_rel=lidar_q_rel, lidar_p_rel=lidar_p_rel, tsh=tsh_dev)
+                acc_b, gyr_b, dt_b, n_imu, obs["ids"], obs["xy"], obs["vel"], dep_dev,
+                lidar_q_rel=lidar_q_rel, lidar_p_rel=lidar_p_rel, tsh=tsh_dev)
 
         if scan is not None:
             qp = torch.cat([lq, lp]).cpu().numpy()
@@ -646,18 +983,178 @@ class VILFusionPipeline:
                 self._init_t = t
             self._reset_high_rate(t)
 
-        self.outputs.ts.append(t)
-        self.outputs.vio_p.append(p_est)
-        self.outputs.vio_q.append(q_est)
-        self.outputs.initialized.append(bool(self.estimator.initialized))
-        self.outputs.lidar_q.append(self._lidar_pose[0])
-        self.outputs.lidar_p.append(self._lidar_pose[1])
-        self.last_processed_t = t
+        # 6. visual loop closure: keyframe-gated BRIEF / BoW detection + PnP
+        #    verification + 4-DoF graph + relocalization feedback
+        est = self.estimator
+        if (self.visual_loop is not None and est.initialized
+                and est.frame_count >= est_mod.K - 1):
+            drift = self._visual_loop_step(
+                img_dev, p_est, q_est,
+                fresh=(obs["ids"].cpu().numpy(), dep_dev.cpu().numpy()),
+                scan=None if scan is None else (pts_dev, val_dev))
+            if drift is not None:
+                p_est, q_est = self._apply_reloc_drift(drift, p_est, q_est)
+
+        self._append_outputs(t, p_est, q_est, bool(est.initialized), self._lidar_pose)
         return p_est, q_est
 
-    def finalize(self):
-        """Resolve the in-flight loop queries and ICP verifications (call
-        once at the end of a replay)."""
-        if self.fusion is not None:
-            self.fusion.flush()
-        return None
+    # -- the visual loop -------------------------------------------------
+    def _vl_worker(self):
+        """The visual-loop worker (the pose_graph node's process() thread).
+        It issues on the default stream, as the main thread does, so its
+        kernels are ordered after the frames whose snapshots it reads; its
+        jobs are timed, and its kNN launches counted, under the stage
+        "visual_loop"."""
+        from vil_fusion_tpu_torch.ops.cuda import knn_cuda
+
+        with knn_cuda.launch_stage("visual_loop"):
+            while True:
+                job = self._vl_jobs.get()
+                try:
+                    with GLOBAL_TIMERS.timed("visual_loop"):
+                        drift = self._visual_loop_step(
+                            job["img"], job["p_est"], job["q_est"], window=job["window"],
+                            feats=job["feats"], pre_drift=job["pre_drift"],
+                            fresh=job["fresh"], scan=job["scan"], gate=False)
+                    if drift is not None:
+                        self._vl_results.put((job["gen"], drift))
+                except Exception as e:  # never kill the pipeline from the worker
+                    self.vl_errors += 1
+                    traceback.print_exc()
+                    print(f"visual-loop worker error (continuing): {e}", flush=True)
+                finally:
+                    self._vl_idle.set()
+
+    def _drain_vl_results(self, p_est, q_est):
+        """Apply every drift the worker produced since the last frame,
+        skipping any computed against a pre-restart estimator."""
+        while not self._vl_results.empty():
+            gen, drift = self._vl_results.get()
+            if gen == self._gen:
+                p_est, q_est = self._apply_reloc_drift(drift, p_est, q_est)
+        return p_est, q_est
+
+    def _apply_reloc_drift(self, drift, p_est, q_est):
+        """Relocalization feedback (setReloFrame :1188-1206 + relo factors
+        :799-836): re-anchor the VIO window, the high-rate propagator and
+        every in-flight frame record into the loop-corrected frame."""
+        R_d, t_d = drift
+        self.estimator.apply_drift(R_d, t_d)
+        p_est = R_d @ p_est + t_d
+        q_est = _np_R2q(R_d @ _np_q2R(q_est))
+        for pr in self._pending:
+            if pr["drift_R"] is None:
+                pr["drift_R"], pr["drift_t"] = R_d.copy(), t_d.copy()
+            else:
+                pr["drift_R"] = R_d @ pr["drift_R"]
+                pr["drift_t"] = R_d @ pr["drift_t"] + t_d
+        if self._hr is not None:
+            hr = self._hr
+            hr["p"] = R_d @ hr["p"] + t_d
+            hr["q"] = _np_R2q(R_d @ _np_q2R(hr["q"]))
+            hr["v"] = R_d @ hr["v"]
+        if self._last_kf_p is not None:
+            self._last_kf_p = R_d @ self._last_kf_p + t_d
+        return p_est, q_est
+
+    def _visual_loop_step(self, img, p_est, q_est, window=None, feats=None,
+                          pre_drift=(None, None), fresh=None, scan=None, gate=True):
+        """Keyframe insert (gated) + detection + verification + 4-DoF drift
+        update (pose_graph node process() + optimize4DoF).
+
+        window / feats: the estimator snapshot taken when the frame was
+        issued (deferred path), by default the live estimator state.
+        pre_drift: loop drift accepted while the snapshot was in flight (its
+        landmarks are still in the pre-drift frame; p_est / q_est arrive
+        corrected). fresh: (ids, depths) of this frame's observations.
+
+        Returns None, or the accepted loop's (R_d, t_d) yaw + translation
+        drift for relocalization feedback into the estimator window."""
+        with self._vl_step_lock:
+            return self._visual_loop_locked(img, p_est, q_est, window, feats, pre_drift,
+                                            fresh, scan, gate)
+
+    def _visual_loop_locked(self, img, p_est, q_est, window, feats, pre_drift, fresh, scan,
+                            gate):
+        db = self.visual_loop
+        gap = db.cfg.keyframe_gap  # SKIP_DIS analog
+        if gate and self._last_kf_p is not None and np.linalg.norm(p_est - self._last_kf_p) < gap:
+            return None
+        est = self.estimator
+        window = est.window if window is None else window
+        feats = est.feats if feats is None else feats
+        # the frame step already slid the window: the newest frame's
+        # observations and state are at slot K - 2
+        pts_w_all, obs_all, ids, valid, observed = est_mod.landmarks_world(
+            window, feats, est_mod.K - 2)
+        host = torch.cat([pts_w_all.double(), obs_all.double(), ids[:, None].double(),
+                          valid[:, None].double(), observed[:, None].double()],
+                         dim=1).cpu().numpy()  # one read; float64 holds the ids exactly
+        pts_w_all, obs_all = host[:, 0:3].astype(np.float32), host[:, 3:5].astype(np.float32)
+        ids_all, valid, observed = host[:, 5].astype(np.int64), host[:, 6] > 0, host[:, 7] > 0
+        if pre_drift[0] is not None:
+            pts_w_all = pts_w_all @ pre_drift[0].T + pre_drift[1]
+        # prefer THIS frame's lidar depths for the exported landmarks: anchor
+        # inverse depths decay through marginalization handovers, a fresh
+        # depth is rigidly consistent with the keyframe pose; features seen
+        # now with a fresh depth but no estimator depth are exported too
+        has_fresh = np.zeros(len(ids_all), bool)
+        if fresh is not None:
+            fids, fdep = fresh
+            fok = (fids >= 0) & (fdep > 0)
+            lut = {int(i): float(d) for i, d in zip(fids[fok], fdep[fok])}
+            z = np.array([lut.get(int(i), -1.0) for i in ids_all], np.float32)
+            has_fresh = observed & (z > 0)
+            if has_fresh.any():
+                R_wb = _np_q2R(np.asarray(q_est, np.float64))
+                R_wc = R_wb @ _np_q2R(np.asarray(self.rig.q_ic, np.float64))
+                p_wc = R_wb @ np.asarray(self.rig.t_ic, np.float64) + p_est
+                rays = np.concatenate([obs_all[has_fresh],
+                                       np.ones((int(has_fresh.sum()), 1), np.float32)], -1)
+                pts_w_all[has_fresh] = (rays * z[has_fresh, None]) @ R_wc.T + p_wc
+        export = valid | has_fresh
+        # exportable window landmarks a keyframe: the Hamming gate needs
+        # >= MIN_LOOP_NUM matches of these
+        db.stats.setdefault("win_landmarks", []).append(int(export.sum()))
+        if export.sum() < 10:
+            db.stats["skip_few_landmarks"] = db.stats.get("skip_few_landmarks", 0) + 1
+            return None
+        pts_w = pts_w_all[export]
+        obs_xy = obs_all[export].astype(np.float32)
+        # pixel coordinates of the observations, for their descriptors
+        px = cam_mod.project(self.fe.cam, torch.from_numpy(
+            np.concatenate([obs_xy, np.ones((len(obs_xy), 1), np.float32)], -1))).numpy()
+        # this frame's camera-frame cloud: lidar-depthed extra corners become
+        # more 3-D anchors (VisualLoopDB.add_keyframe)
+        cloud_cam = cloud_val = None
+        if scan is not None:
+            cloud_cam = lie.qrot(self.fe.q_cl[None, :], scan[0]) + self.fe.t_cl[None, :]
+            cloud_val = scan[1]
+        i_cur = db.add_keyframe(img, q_est, p_est, pts_w, px, np.ones(len(px), bool),
+                                self.fe.cam, sequence=self.sequence,
+                                cloud_cam=cloud_cam, cloud_valid=cloud_val)
+        if i_cur is None:
+            return None  # keyframe DB full
+        if gate:
+            self._last_kf_p = np.asarray(p_est)  # gate on a successful insert
+        hit = db.detect_and_verify(i_cur)
+        if hit is None:
+            return None
+        cand, q_rel, p_rel = hit
+        graph_before = db.graph
+        # the main thread reads db.q / db.p for its frames' keyframe anchors
+        with self._vl_lock:
+            db.close_loop(i_cur, cand, q_rel, p_rel)
+            # drift: corrected keyframe pose against its VIO pose (:552-574)
+            dyaw, R_d, t_d = pg4.drift_transform(graph_before, db.graph, i_cur)
+            R_d, t_d = R_d.cpu().numpy(), t_d.cpu().numpy()
+            # move the insert-time (VIO-frame) records into the corrected
+            # frame (the estimator is about to be re-anchored by the same
+            # transform), then pull the optimized poses into the store
+            db.apply_drift_to_vio(R_d, float(dyaw), t_d)
+            db.sync_from_graph()
+        # with relocalization feedback the window itself is re-anchored, so no
+        # residual display drift remains
+        self.loop_drift_R = np.eye(3, dtype=np.float32)
+        self.loop_drift_t = np.zeros(3, np.float32)
+        return R_d, t_d

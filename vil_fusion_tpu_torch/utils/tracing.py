@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
 from collections import defaultdict
 
@@ -31,6 +32,8 @@ class StageTimers:
     def __init__(self):
         self.stats = defaultdict(
             lambda: {"n": 0, "total": 0.0, "max": 0.0, "samples": []})
+        # a pipeline's worker thread times its stage too
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def timed(self, name: str):
@@ -43,21 +46,24 @@ class StageTimers:
                 yield
         finally:
             dt = time.perf_counter() - t0
-            s = self.stats[name]
-            s["n"] += 1
-            s["total"] += dt
-            s["max"] = max(s["max"], dt)
-            if len(s["samples"]) < MAX_SAMPLES:
-                s["samples"].append(dt)
-            else:  # overwrite cyclically, oldest first: sample n (1-based)
-                # goes to slot (n - 1) % MAX_SAMPLES, so the first samples
-                # (the kernels' build at first use) age out first
-                s["samples"][(s["n"] - 1) % MAX_SAMPLES] = dt
+            with self._lock:
+                s = self.stats[name]
+                s["n"] += 1
+                s["total"] += dt
+                s["max"] = max(s["max"], dt)
+                if len(s["samples"]) < MAX_SAMPLES:
+                    s["samples"].append(dt)
+                else:  # overwrite cyclically, oldest first: sample n (1-based)
+                    # goes to slot (n - 1) % MAX_SAMPLES, so the first samples
+                    # (the kernels' build at first use) age out first
+                    s["samples"][(s["n"] - 1) % MAX_SAMPLES] = dt
 
     def summary(self) -> dict:
         out = {}
-        for k, v in self.stats.items():
-            sm = sorted(v["samples"])
+        with self._lock:
+            items = [(k, dict(v, samples=sorted(v["samples"]))) for k, v in self.stats.items()]
+        for k, v in items:
+            sm = v["samples"]
             n = len(sm)
             out[k] = {
                 "n": v["n"],
@@ -73,7 +79,8 @@ class StageTimers:
         return json.dumps(self.summary(), indent=2, sort_keys=True)
 
     def reset(self):
-        self.stats.clear()
+        with self._lock:
+            self.stats.clear()
 
 
 GLOBAL_TIMERS = StageTimers()
