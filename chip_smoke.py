@@ -60,9 +60,24 @@ Phases, any failure exits non-zero:
      the densification shape (384 extra corners x the 19,200-point scan);
   10. path "mask": mode "mask" on tests/test_pipeline.py:263's sequence with
      a moving textured object and its mask: at most 2 tracked features in
-     the object's core on any frame, no restart, error < 0.5 m.
+     the object's core on any frame, no restart, error < 0.5 m;
+  11. path "replay" (dataset replay): (a) sim.TorchRaycast on the card
+     against the numpy raycast on tools/run_synthetic.py's circuit scene, an
+     HDL-64 scan and a 1226 x 370 image (tests/test_sim.py's gates), with
+     their CUDA-event ms beside the numpy seconds; (b) phase 4's 45 scans
+     (valid points only) and 15 of phase 6's images (PNG) written as a KITTI
+     odometry sequence under build/ and replayed by
+     vil_fusion_tpu_torch.tools.run_dataset (mode "lidar", the native ring
+     bus): every frame out, TUM files and report.json written, nothing
+     dropped, K1 on every frame after the first, end error within 0.25 m;
+     (c) vil_fusion_tpu_torch.tools.run_synthetic over 30 frames of the
+     KITTI-scale circuit from a cold start (visual loop, sync_depth=2,
+     frames rendered by TorchRaycast in the ring bus's producer thread): no
+     restart, no worker error, nothing dropped, K1 and K2 launched, the
+     fusion keyframes' ATE and the lidar end error within 0.25 m.
 The numpy simulator's frames are made in a pool of processes (the scans
-while the kernels build, the lap's frames ahead of phases 7 and 9).
+while the kernels build, the lap's frames ahead of phases 7 and 9, phase
+11's numpy references after them).
 Every path checks that its state tensors are on the card, that its kernels
 launched (counts set to 0 just before, read just after), that all poses are
 finite and that the end position is within its bound of the simulator's
@@ -142,6 +157,16 @@ LOOP_REF = dict(init_frame=10, sc_loops=3, visual_loops=4, loop_frame=363, ate_v
 # package's (tools/jax_cpu_reference.py --mode mask)
 MASK_FRAMES = 16
 MASK_REF = dict(max_err_m=0.1018)
+# phase 11: dataset replay. 11a and 11c use the circuit of
+# vil_fusion_tpu_torch/tools/run_synthetic.py (urban block around a 100 m
+# circle, LoopTrajectory at 8 m/s mean); 11a renders its frame 5. 11b
+# replays phase 4's scans and the first images of phase 6 from a KITTI
+# odometry sequence on disk; 11c runs the circuit from a cold start.
+CIRCUIT = dict(radius=100.0, pillar_step_deg=4.0, box_step_deg=6.0)
+CIRCUIT_FRAME = 5
+REPLAY_IMAGES = 15
+SYNTH_FRAMES = 30
+SYNTH_BOUND_M = 0.25  # fusion keyframes' ATE and lidar end error of 11c
 # main-path shapes: scan geometry, odometry map capacities, ICP submap
 SCAN = dict(n_scan=64, width=1800, fov_up_deg=2.0, fov_down_deg=-24.8, max_range=80.0)
 MAP_CAPS = (16384, 32768)
@@ -1447,6 +1472,201 @@ def _mask_path(dev, card):
     _on_card({f"tracker.{k}": v for k, v in pipe.tracker_state._asdict().items()}, dev)
 
 
+def _circuit_world():
+    """11a's scene (tools/run_synthetic.py's circuit) and its frame-5 body pose."""
+    import numpy as np
+
+    from vil_fusion_tpu_torch.runtime import sim
+
+    r = CIRCUIT["radius"]
+    traj = sim.LoopTrajectory(radius=r, period=2 * np.pi * r / 8.0)
+    t = 1.0 + CIRCUIT_FRAME * FRAME_DT
+    return (sim.urban_block_scene(r, pillar_step_deg=CIRCUIT["pillar_step_deg"],
+                                  box_step_deg=CIRCUIT["box_step_deg"]),
+            traj.rotation(t), traj.position(t) + np.array([0.0, 0.0, 1.5]))
+
+
+def _circuit_numpy(kind: str):
+    """11a's numpy reference (in a pool process): the HDL-64 scan or the
+    1226 x 370 image of the circuit frame, with its host seconds."""
+    import numpy as np
+
+    from vil_fusion_tpu_torch.runtime import sim
+
+    scene, R, p = _circuit_world()
+    t0 = time.perf_counter()
+    if kind == "scan":
+        out = sim.simulate_lidar_scan(scene, R, p, **SCAN)
+    else:
+        out = sim.render_camera_image(scene, R @ np.array(R_BC), p, FX, FX, CX, CY, IMG_H, IMG_W)
+    return out, time.perf_counter() - t0
+
+
+def _raycast_phase(dev, card, numpy_async):
+    """11a: TorchRaycast on the card against the numpy raycast (computed in
+    the pool) on the circuit frame, with tests/test_sim.py's gates: scan
+    validity agreement > 99.5% and points within 2e-3 m where both hit,
+    uint8 images within +-1 grey level on > 99.5% of pixels. Prints the
+    CUDA-event ms of a scan and of an image on the card (the device work,
+    no host copy) beside the numpy seconds."""
+    import numpy as np
+
+    from vil_fusion_tpu_torch.runtime import sim
+
+    scene, R, p = _circuit_world()
+    rc = sim.TorchRaycast(scene, device=dev)
+    R_c = R @ np.array(R_BC)
+    cam = (FX, FX, CX, CY, IMG_H, IMG_W)
+    pts, val = sim.simulate_lidar_scan(rc, R, p, **SCAN)
+    img = rc.render_image_u8(R_c, p, *cam)
+    scan_ms = _time_ms(lambda: rc.scan_ranges_device(R, p, **SCAN), reps=10)
+    image_ms = _time_ms(lambda: rc.image_u8_device(R_c, p, *cam), reps=10)
+    ((pts_np, val_np), scan_s), (img_np, image_s) = numpy_async.get()
+    agree = float((val == val_np).mean())
+    both = val & val_np
+    err = float(np.abs(pts[both] - pts_np[both]).max())
+    u_np = np.clip(img_np * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    close = float((np.abs(img.astype(int) - u_np.astype(int)) <= 1).mean())
+    print(f"  raycast: circuit scene ({len(scene.pillars)} pillars, {len(scene.boxes)} boxes), "
+          f"frame {CIRCUIT_FRAME}: HDL-64 scan {SCAN['n_scan'] * SCAN['width']} rays "
+          f"{scan_ms:.3f} ms on the card, numpy {scan_s:.2f} s; {IMG_W} x {IMG_H} image "
+          f"{image_ms:.3f} ms on the card, numpy {image_s:.2f} s (CUDA events, median of 10; "
+          f"numpy on one host core) [{card}]", flush=True)
+    print(f"  raycast: scan validity agreement {agree:.5f} ({int(val.sum())} / "
+          f"{int(val_np.sum())} hits), largest point distance {err:.2e} m; image pixels within "
+          f"+-1 grey {close:.5f}", flush=True)
+    if not (agree > 0.995 and both.sum() > 10000 and err < 2e-3 and close > 0.995):
+        raise AssertionError(f"raycast: agreement {agree}, hits {both.sum()}, error {err}, "
+                             f"image {close}")
+
+
+def _replay_path(frames, images, dev, card):
+    """11b: phase 4's scans (valid points only, as KITTI stores them) and
+    the first REPLAY_IMAGES images of phase 6 (PNG, the port's encoder)
+    written as a KITTI odometry sequence under build/, with the simulator's
+    poses, then run_dataset.main(mode="lidar") on the card: every frame
+    out, the TUM files and report.json written, the ring dropped nothing,
+    K1 launched on every frame after the first, end error within
+    END_ERR_BOUND_M. Returns the launch counts."""
+    import contextlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.runtime import datasets, tum
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+    from vil_fusion_tpu_torch.tools import run_dataset
+
+    root = ROOT / "build" / "smoke_kitti"
+    out = root / "out"
+    shutil.rmtree(root, ignore_errors=True)
+    R0, p0 = frames[0][3], frames[0][4]
+    poses = [np.concatenate([R0.T @ fr[3], (R0.T @ (fr[4] - p0))[:, None]], 1) for fr in frames]
+    t0 = time.perf_counter()
+    datasets.write_kitti_odometry(str(root), "00", [fr[0] for fr in frames],
+                                  [fr[1][fr[2]] for fr in frames], images[:REPLAY_IMAGES], poses)
+    write_s = time.perf_counter() - t0
+    per_frame = []
+    step = VILFusionPipeline._process_lidar_only
+
+    def counted(pipe, *a):
+        k1 = _counts(kc)["K1"]
+        res = step(pipe, *a)
+        per_frame.append(_counts(kc)["K1"] - k1)
+        return res
+
+    VILFusionPipeline._process_lidar_only = counted
+    _reset(kc)
+    try:
+        out.mkdir(parents=True)
+        with open(out / "stdout.txt", "w") as log, contextlib.redirect_stdout(log):
+            rep = run_dataset.main(["--dataset", "kitti", "--data", str(root), "--seq", "00",
+                                    "--config", str(ROOT / "configs" / "kitti.yaml"),
+                                    "--mode", "lidar", "--out", str(out),
+                                    "--device", torch.device(dev).type])
+    finally:
+        VILFusionPipeline._process_lidar_only = step
+    torch.cuda.synchronize()
+    counts = _counts(kc)
+    st = rep["replay"]
+    files = ["report.json", "lidar_odometry.txt", "vins_result_no_loop.txt", "trajectories.png",
+             "map.png"]
+    missing = [f for f in files if not (out / f).is_file()]
+    _, ps, qs = tum.read_tum(str(out / "lidar_odometry.txt"))
+    print(f"  replay: wrote {len(frames)} scans ({sum(int(fr[2].sum()) for fr in frames)} valid "
+          f"points) and {REPLAY_IMAGES} PNG images in {write_s:.2f} s; run_dataset: "
+          f"{rep['frames']} frames, {st['events']} events in {st['wall_s']:.2f} s = "
+          f"{rep['frames'] / st['wall_s']:.3f} frames/s, {st['events'] / st['wall_s']:.2f} "
+          f"events/s; ring dropped {st['dropped']}, consumer waited {st['wait_s']:.3f} s, "
+          f"producer lead mean {st['lead_mean']:.2f} max {st['lead_max']} events [{card}]",
+          flush=True)
+    print(f"  replay: K1 launches per frame {per_frame}; launches {counts}; ATE (report) "
+          f"{rep.get('ate_rmse_vio')}", flush=True)
+    _pose_errors("replay", list(ps), list(qs), frames, END_ERR_BOUND_M)
+    bad = []
+    if rep["frames"] != len(frames) or len(ps) != len(frames) or missing:
+        bad.append(f"{rep['frames']} frames, {len(ps)} TUM rows, missing {missing}")
+    if st["dropped"] or st["events"] != len(frames) + REPLAY_IMAGES:
+        bad.append(f"ring dropped {st['dropped']}, {st['events']} events")
+    if (len(per_frame) != len(frames) or min(per_frame[1:]) < 1
+            or rep["device"] != torch.device(dev).type):
+        bad.append(f"K1 per frame {per_frame}, device {rep['device']}")
+    if bad:
+        raise AssertionError("replay: " + "; ".join(bad))
+    return counts
+
+
+def _synthetic_path(dev, card):
+    """11c: run_synthetic.main over SYNTH_FRAMES frames of the KITTI-scale
+    circuit: cold start, visual loop, sync_depth=2, frames rendered by
+    TorchRaycast in the ring bus's producer thread. Gates: every frame out,
+    no restart, no visual-loop worker error, the ring dropped nothing, K1
+    and K2 launched, the fusion keyframes' ATE and the lidar end error
+    within SYNTH_BOUND_M. Returns the launch counts."""
+    import contextlib
+
+    import torch
+
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.tools import run_synthetic
+
+    out = ROOT / "build" / "smoke_synthetic"
+    out.mkdir(parents=True, exist_ok=True)
+    _reset(kc)
+    with open(out / "stdout.txt", "w") as log, contextlib.redirect_stdout(log):
+        rep = run_synthetic.main(["--frames", str(SYNTH_FRAMES), "--out", str(out),
+                                  "--device", torch.device(dev).type])
+    torch.cuda.synchronize()
+    counts = _counts(kc)
+    st = rep["replay"]
+    print(f"  synthetic: {rep['frames']} frames in {rep['wall_s']} s = {rep['fps']} frames/s "
+          f"(cold start included); render {rep['render_ms_per_frame']:.2f} ms a frame in the "
+          f"producer thread (host clock, scan + image); {st['events']} events, ring dropped "
+          f"{st['dropped']}, consumer waited {st['wait_s']:.3f} s, producer lead mean "
+          f"{st['lead_mean']:.2f} max {st['lead_max']} [{card}]", flush=True)
+    print(f"  synthetic: initialized at frame {rep['first_initialized_frame']} "
+          f"({rep['frames_initialized']} frames initialized), restarts {rep['restarts']}, "
+          f"visual-loop worker errors {rep['vl_errors']}; ATE VIO {rep['ate_rmse_vio']}, "
+          f"fusion keyframes {rep.get('ate_rmse_fusion')} m, lidar end error "
+          f"{rep['lidar_end_err_m']:.4f} m (bounds {SYNTH_BOUND_M} m); launches {counts}",
+          flush=True)
+    bad = []
+    if rep["frames"] != SYNTH_FRAMES or rep["restarts"] or rep["vl_errors"] or st["dropped"]:
+        bad.append(f"{rep['frames']} frames, restarts {rep['restart_log']}, worker errors "
+                   f"{rep['vl_errors']}, dropped {st['dropped']}")
+    if counts["K1"] < 1 or counts["K2"] < 1:
+        bad.append(f"launches {counts}")
+    if not (rep.get("ate_rmse_fusion", float("inf")) < SYNTH_BOUND_M
+            and rep["lidar_end_err_m"] < SYNTH_BOUND_M):
+        bad.append(f"fusion ATE {rep.get('ate_rmse_fusion')}, lidar end error "
+                   f"{rep['lidar_end_err_m']}")
+    if bad:
+        raise AssertionError("synthetic: " + "; ".join(bad))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1478,7 +1698,7 @@ def main() -> int:
 
 
 def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
-    """Phases 2-10 of main(), the simulator's frames made in `pool`."""
+    """Phases 2-11 of main(), the simulator's frames made in `pool`."""
     import numpy as np
     import torch
 
@@ -1492,6 +1712,7 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
     n_img = max(FRONT_WARMUP + FRONT_TIMED, VIL_WARMUP + VIL_TIMED)
     images_async = pool.starmap_async(_render, [_kitti_pose(i) for i in range(n_img)])
     lap = _Ahead(pool.imap(_lap_frame, range(LOOP_FRAMES), chunksize=2))
+    circuit_async = pool.map_async(_circuit_numpy, ["scan", "image"], chunksize=1)
 
     # phase 2: build
     t1 = time.perf_counter()
@@ -1588,8 +1809,18 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
     print(f"path mask: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
     _mask_path(dev, card)
 
-    on_path = {"K1": ("dense", "front end", "vil", "deferred"),
-               "K2": ("dense", "sparse", "front end", "vil", "cold start", "deferred", "loop"),
+    # phase 11: dataset replay (the raycaster, run_dataset, run_synthetic)
+    print(f"path replay: [{time.perf_counter() - t_start:.1f} s after the device check]",
+          flush=True)
+    t0 = time.perf_counter()
+    _raycast_phase(dev, card, circuit_async)
+    add("replay", _replay_path(frames, images, dev, card))
+    add("synthetic", _synthetic_path(dev, card))
+    print(f"  replay phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+    on_path = {"K1": ("dense", "front end", "vil", "deferred", "replay", "synthetic"),
+               "K2": ("dense", "sparse", "front end", "vil", "cold start", "deferred", "loop",
+                      "synthetic"),
                "K2 densify": ("loop",),
                "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",),
                "Morton keys": ("sparse",)}

@@ -7,6 +7,7 @@ chip_smoke.py, on the CPU at a reduced scan.
     JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode coldstart --frames 80
     JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode e2eloop --frames 390
     JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode mask --frames 16
+    JAX_PLATFORMS=cpu python tools/jax_cpu_reference.py --mode synthetic --frames 16
 
 The port's smoke run (chip_smoke.py) bounds its end-position errors from
 these numbers. Modes dense (default odometry), deskew (deskew=True on
@@ -27,7 +28,9 @@ phase 9: the cold-start rig with the visual loop, sync_depth=2) and reports
 its quantities (initialization frame, loops, first visual-loop frame, the
 three ATEs); mode mask runs tests/test_pipeline.py:263's masked sequence
 (chip_smoke.py's phase 10) and reports the errors and the tracked features
-inside the moving object. Prints one line of JSON.
+inside the moving object; mode synthetic runs the cold start of the port's
+run_synthetic circuit through both packages on the same events (_synthetic).
+Prints one line of JSON.
 """
 from __future__ import annotations
 
@@ -167,9 +170,67 @@ def _mask(frames: int) -> dict:
                 image="320x240")
 
 
+def _synthetic(frames: int) -> dict:
+    """The cold start of vil_fusion_tpu_torch/tools/run_synthetic.py's
+    circuit (radius 100 m, 8 m/s, IMU noise and biases, 1226 x 370 images)
+    at the reduced scan and maps, through the JAX package and through the
+    port on the CPU, on the same events (rendered once by the port's
+    TorchRaycast on the CPU). Per package: the initialization frame, the z
+    of every window slot right after the alignment (the world origin is the
+    oldest slot and z is vertical; the truth varies by at most 0.24 m, the
+    circuit's bob), the newest pose's z and the restarts on every frame.
+    sync_depth=0 and no visual loop (neither acts before a loop closes)."""
+    import torch
+
+    from vil_fusion_tpu.runtime import datasets as jds
+    from vil_fusion_tpu.runtime.config import RigConfig
+    from vil_fusion_tpu.runtime.pipeline import VILFusionPipeline
+    from vil_fusion_tpu_torch.runtime import datasets as tds
+    from vil_fusion_tpu_torch.runtime import sim as tsim
+    from vil_fusion_tpu_torch.runtime.config import RigConfig as TRigConfig
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline as TPipeline
+    from vil_fusion_tpu_torch.tools import run_synthetic as rs
+
+    radius, speed = 100.0, 8.0
+    traj = tsim.LoopTrajectory(radius=radius, period=2 * np.pi * radius / speed)
+    scene = tsim.TorchRaycast(tsim.urban_block_scene(radius, pillar_step_deg=4.0,
+                                                     box_step_deg=6.0), device="cpu")
+    geom = (rs.R_BC, rs.IMG_H, rs.IMG_W, rs.FX, rs.FY, rs.CX, rs.CY)
+    events = list(rs.make_events(traj, scene, geom, frames, scan=SCAN))
+    out = {}
+    for name, make in (("jax", lambda: VILFusionPipeline(
+            rs.city_rig(RigConfig, SCAN), mode="vil", sync_depth=0, scan_quant=0.0025,
+            odom_overrides=MAPS)),
+                       ("port", lambda: TPipeline(
+            rs.city_rig(TRigConfig, SCAN), mode="vil", sync_depth=0, scan_quant=0.0025,
+            odom_overrides=MAPS, device="cpu"))):
+        pipe = make()
+        est = pipe.estimator
+        rec = {}
+        init = est._try_initialize
+
+        def recorded(est=est, init=init, rec=rec):
+            ok = init()
+            if ok and "align_z" not in rec:
+                p = est.window.p
+                p = p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+                rec["align_z"] = [round(float(z), 4) for z in p[:, 2]]
+            return ok
+
+        est._try_initialize = recorded
+        (jds if name == "jax" else tds).replay(pipe, iter(events))
+        ini = np.asarray(pipe.outputs.initialized, bool)
+        out[name] = dict(
+            init_frame=int(np.argmax(ini)) if ini.any() else None, restarts=pipe.restarts,
+            restart_log=pipe.restart_log, **rec,
+            vio_z=[round(float(p[2]), 4) for p in pipe.outputs.vio_p])
+    return dict(out, scan="32x900", maps="4096/8192", image=f"{rs.IMG_W}x{rs.IMG_H}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=sorted(MODES) + ["coldstart", "e2eloop", "mask", "vil"],
+    ap.add_argument("--mode", choices=sorted(MODES) + ["coldstart", "e2eloop", "mask", "vil",
+                                                       "synthetic"],
                     default="dense")
     ap.add_argument("--frames", type=int, default=10)
     args = ap.parse_args()
@@ -177,8 +238,9 @@ def main() -> None:
     if args.mode == "vil":
         print(json.dumps(dict(head, scan="32x900", maps="4096/8192", **_vil(args.frames))))
         return
-    if args.mode in ("coldstart", "e2eloop", "mask"):
-        run = dict(coldstart=_coldstart, e2eloop=_e2eloop, mask=_mask)[args.mode]
+    if args.mode in ("coldstart", "e2eloop", "mask", "synthetic"):
+        run = dict(coldstart=_coldstart, e2eloop=_e2eloop, mask=_mask,
+                   synthetic=_synthetic)[args.mode]
         print(json.dumps(dict(head, **run(args.frames))))
         return
 
