@@ -40,7 +40,7 @@ Phases, any failure exits non-zero:
      frame (tracker, lidar odometry, extrinsic glue, depth association,
      estimator: IMU preintegration, feature ingest, triangulation, bundle
      adjustment, marginalization, slide) on the same rig with 200 Hz IMU,
-     oracle initial state, 14 warm-up + 20 timed frames: no restart, the
+     oracle initial state, 14 warm-up + 5 timed frames: no restart, the
      fused estimator step on every steady frame, K1 / K2 launched as the
      odometry and the depth association plan them each frame, the end
      error within its bound; then a cold start on tests/test_e2e_loop.py's
@@ -70,11 +70,26 @@ Phases, any failure exits non-zero:
      vil_fusion_tpu_torch.tools.run_dataset (mode "lidar", the native ring
      bus): every frame out, TUM files and report.json written, nothing
      dropped, K1 on every frame after the first, end error within 0.25 m;
-     (c) vil_fusion_tpu_torch.tools.run_synthetic over 30 frames of the
+     (c) vil_fusion_tpu_torch.tools.run_synthetic over 20 frames of the
      KITTI-scale circuit from a cold start (visual loop, sync_depth=2,
      frames rendered by TorchRaycast in the ring bus's producer thread): no
      restart, no worker error, nothing dropped, K1 and K2 launched, the
-     fusion keyframes' ATE and the lidar end error within 0.25 m.
+     fusion keyframes' ATE and the lidar end error within 0.25 m;
+  12. path "parallel": (a) K1 (surf, edge) and K2 (ICP) over a sequence
+     axis in one launch on 8 different simulator maps, bit for bit against
+     8 unbatched launches and with a database shared by every sequence,
+     against the plain batched version, and at the 180 ragged shapes x 3
+     sequences, CUDA-event ms beside 8 unbatched calls; (b)
+     odometry_step_batched (torch.func.vmap of the step, one K1 launch a
+     call for the batch) over 8 sequences of phase 4's scans, 5 + 10 steps,
+     poses within 1e-4 m of each sequence stepped alone, the K1 launches of a
+     batched step those of one sequence, aggregate frames/s; then 3 batched
+     steps of the exact kNN (K2); (c) knn_sharded, detect_loop_sharded and
+     optimize_sharded at world size 1 over NCCL against knn_exact,
+     detect_loop (2,048 slots) and ba.optimize on phase 7's final window;
+     (d) the same three on 4 spawned ranks over gloo with CUDA tensors on
+     the one card against (c); (e) preintegrate(parallel=True) against the
+     sequential loop with host ms and device kernels of each.
 The numpy simulator's frames are made in a pool of processes (the scans
 while the kernels build, the lap's frames ahead of phases 7 and 9, phase
 11's numpy references after them).
@@ -130,16 +145,17 @@ DEPTH_ERR_BOUND_M = 0.15
 MIN_LIVE, MIN_TRACKED_MEAN, MIN_TRACKED = 100, 100, 50
 # path vil: warm-up covers the window's filling (the estimator's first fused
 # step is frame K - 1 = 10) and a few steady frames
-VIL_WARMUP, VIL_TIMED = 14, 20
+VIL_WARMUP, VIL_TIMED = 14, 5
 IMU_RATE = 200.0
 # end-position bound of the vil path: VIL_REF_END_ERR_M is the JAX
-# package's own end error over the same 34 frames on the CPU
-# (tools/jax_cpu_reference.py --mode vil --frames 34, 32 x 900 scans and
+# package's own end error over the same 19 frames on the CPU
+# (tools/jax_cpu_reference.py --mode vil --frames 19, 32 x 900 scans and
 # 4,096 / 8,192-point maps: 0.0402 m before the first bundle adjustment at
-# frame 10, 0.4441 m after it, then growing); the bound is about twice it,
-# as for the other paths (PERF.md)
-VIL_REF_END_ERR_M = 1.9139
-VIL_END_ERR_BOUND_M = 4.0
+# frame 10, 0.4441 m after it, then growing; 1.7700 m after 24 frames,
+# 1.9139 m after 34); the bound is about twice it, as for the other paths
+# (PERF.md)
+VIL_REF_END_ERR_M = 1.4363
+VIL_END_ERR_BOUND_M = 3.0
 # the cold start: frame cap, frames run after initializing, and the JAX
 # package's initialization frame on the CPU
 # (tools/jax_cpu_reference.py --mode coldstart --frames 80)
@@ -165,7 +181,7 @@ MASK_REF = dict(max_err_m=0.1018)
 CIRCUIT = dict(radius=100.0, pillar_step_deg=4.0, box_step_deg=6.0)
 CIRCUIT_FRAME = 5
 REPLAY_IMAGES = 15
-SYNTH_FRAMES = 30
+SYNTH_FRAMES = 20
 SYNTH_BOUND_M = 0.25  # fusion keyframes' ATE and lidar end error of 11c
 # main-path shapes: scan geometry, odometry map capacities, ICP submap
 SCAN = dict(n_scan=64, width=1800, fov_up_deg=2.0, fov_down_deg=-24.8, max_range=80.0)
@@ -1026,9 +1042,13 @@ def _kernel_phase(frames, dev):
 
 
 def _counts(kc):
-    """Launch counts of the six kernels since the last _reset."""
-    return {"K1": kc.knn_grouped.launches - kc.knn_grouped.launches_diff,
-            "K2": kc.knn_exact.launches - kc.knn_exact.launches_diff,
+    """Launch counts of the six kernels since the last _reset (K1 and K2:
+    unbatched launches of the expanded form; no path launches a batched
+    call in the difference form)."""
+    return {"K1": kc.knn_grouped.launches - kc.knn_grouped.launches_diff
+            - kc.knn_grouped.launches_batched,
+            "K2": kc.knn_exact.launches - kc.knn_exact.launches_diff
+            - kc.knn_exact.launches_batched,
             "K3": kc.knn_sparse.launches,
             "K1 diff": kc.knn_grouped.launches_diff, "K2 diff": kc.knn_exact.launches_diff,
             "Morton keys": kc.morton_keys.launches}
@@ -1316,7 +1336,7 @@ def _vil_path(frames, images, dev, card, sync_depth=0):
     if not errs[-1] < VIL_END_ERR_BOUND_M:
         raise AssertionError(f"{name}: end-position error {errs[-1]:.4f} m >= "
                              f"{VIL_END_ERR_BOUND_M} m")
-    return counts, VIL_TIMED / dt, vio_p
+    return counts, VIL_TIMED / dt, vio_p, (est.window, est.feats, est.pre, est.lidar, est.prior)
 
 
 def _cold_start(dev, frame=None):
@@ -1667,6 +1687,507 @@ def _synthetic_path(dev, card):
     return counts
 
 
+# phase 12: the parallel and batched paths. S sequences of phase 4's scans
+# (sequence s starts at frame BATCH_STRIDE s), the batched kernels' shapes,
+# the ranks of the gloo run on the one card, the preintegration segment
+BATCH_S = 8
+BATCH_STRIDE = 3
+BATCH_WARMUP, BATCH_TIMED = 5, 10
+BATCH_EXACT_STEPS = 3  # the short batched run of the exact kNN (K2)
+BATCH_POSE_TOL_M = 1e-4  # a step against the single step (tests/test_parallel.py:169-171)
+GLOO_RANKS = 4
+GLOO_TIMEOUT_S = 240
+SC_CAPACITY = 2048  # GlobalFusionConfig.node_capacity
+# tests/test_parallel.py's tolerances of the sharded BA: the full LM loop
+# (cost rtol 1e-3 / atol 1e-5, p 5e-3, q 1e-3, inverse depth 5e-3) and one
+# GN step at fixed damping (cost rtol 1e-3, p and inverse depth 5e-4)
+BA_TOL = dict(cost_rtol=1e-3, cost_atol=1e-5, p=5e-3, q=1e-3, inv_depth=5e-3)
+BA_STEP_TOL = dict(cost_rtol=1e-3, cost_atol=0.0, p=5e-4, inv_depth=5e-4)
+
+
+def _batched_kernel_phase(frames, dev):
+    """12a: K1 (surf, edge) and K2 (ICP) over BATCH_S sequences in one
+    launch, on BATCH_S different simulator maps (`_kernel_inputs` of the
+    sequence starting at frame 2 s): rows bit for bit those of BATCH_S
+    unbatched launches and within the unbatched tolerance of the plain
+    batched version; a database shared by every sequence (stride 0); the
+    180 ragged shapes of phase 3 at S = 3 bit for bit; CUDA-event ms of the
+    batched call beside BATCH_S unbatched calls, the bound at BATCH_S x the
+    pairs. Returns {kernel name: record} without launch counts."""
+    import torch
+
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    seqs = [_kernel_inputs(frames[2 * s:], dev, big=False).cases for s in range(BATCH_S)]
+    records, shapes, errs = {}, {}, {}
+    for kname, case in (("K1 batched", "surf"), ("K1 batched", "edge"), ("K2 batched", "icp")):
+        grouped = kname.startswith("K1")
+        kern = kc.knn_grouped if grouped else kc.knn_exact
+        plain = kc.knn_grouped_plain if grouped else kc.knn_exact_plain
+        k = seqs[0][case][6]
+        q, db, v = (torch.stack([c[case][j] for c in seqs]).contiguous() for j in range(3))
+        S, nq, nd = q.shape[0], q.shape[1], db.shape[1]
+        before = kc.kernels_enqueued()
+        d, i = kern(q, db, v, k=k)
+        per_call = kc.kernels_enqueued() - before
+        planned = 1 + kc.plan(nq, nd, k, sm_count, grouped, S).merge
+        if per_call != planned:
+            raise AssertionError(f"{kname} {case}: the batched call enqueued {per_call} kernels, "
+                                 f"its plan says {planned}")
+        for s in range(S):
+            d1, i1 = kern(q[s], db[s], v[s], k=k)
+            if not (torch.equal(d[s], d1) and torch.equal(i[s], i1)):
+                raise AssertionError(f"{kname} {case}: sequence {s} differs from its unbatched "
+                                     f"launch")
+        d_sh, i_sh = kern(q, db[0], v[0], k=k)  # one database shared (stride 0)
+        for s in range(S):
+            d1, i1 = kern(q[s], db[0], v[0], k=k)
+            if not (torch.equal(d_sh[s], d1) and torch.equal(i_sh[s], i1)):
+                raise AssertionError(f"{kname} {case}: shared database, sequence {s} differs")
+        d_p, i_p = plain(q, db, v, k=k)
+        d_m, _ = plain(q, db, v, k=k + 1)
+        torch.cuda.synchronize()
+        label = f"{kname} {case} {S}x{nq}x{nd} k={k}"
+        err = _compare(label + " vs plain batched", d.reshape(-1, k), i.reshape(-1, k),
+                       d_p.reshape(-1, k), i_p.reshape(-1, k), d_m.reshape(-1, k + 1), k)
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        ms = _time_ms(lambda: kern(q, db, v, k=k))
+        ms_8 = _time_ms(lambda: [kern(q[s], db[s], v[s], k=k) for s in range(S)])
+        plain_ms = _time_ms(lambda: plain(q, db, v, k=k), reps=5, warmup=1)
+        b_ms, b_by = _knn_bound(S * nq, S * nd, k, pairs=S * nq * nd)
+        shapes.setdefault(kname, {})[case] = dict(
+            shape=f"{S}x{nq}x{nd} k={k}", ms=ms, unbatched_x_s_ms=ms_8, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, launches_per_call=per_call)
+        print(f"  {label}: == {S} unbatched launches bit for bit (and with a shared database); "
+              f"batched {ms:.4f} ms in {per_call} kernel(s) against {S} unbatched calls "
+              f"{ms_8:.4f} ms, plain batched {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+              f"(CUDA-event medians)", flush=True)
+
+    # the ragged shapes of phase 3 at S = 3: rows bit for bit, whatever the
+    # plan splits under the batch
+    n_ragged, split_differs = 0, 0
+    for nd in RAGGED_ND:
+        db = torch.rand((3, nd, 3), device=dev) * 100 - 50
+        v = torch.rand((3, nd), device=dev) < 0.9
+        for nq in RAGGED_NQ:
+            q = torch.rand((3, nq, 3), device=dev) * 100 - 50
+            for k, form, grouped in itertools.product(RAGGED_K, ("expanded", "diff"),
+                                                      (True, False)):
+                kern = kc.knn_grouped if grouped else kc.knn_exact
+                d, i = kern(q, db, v, k=k, form=form)
+                for s in range(3):
+                    d1, i1 = kern(q[s], db[s], v[s], k=k, form=form)
+                    if not (torch.equal(d[s], d1) and torch.equal(i[s], i1)):
+                        raise AssertionError(f"batched ragged {nq}x{nd} k={k} {form} grouped="
+                                             f"{grouped}: sequence {s} differs")
+                split_differs += (kc.plan(nq, nd, k, sm_count, grouped, 3)
+                                  != kc.plan(nq, nd, k, sm_count, grouped))
+                n_ragged += 1
+    print(f"  K1 / K2 batched, both forms: == unbatched launches bit for bit at {n_ragged} "
+          f"ragged shapes x S = 3 ({split_differs} of them split the database otherwise under "
+          f"the batch)", flush=True)
+    pk = "vil_fusion_tpu/ops/pallas/knn_pallas.py"
+    for kname, main, replaces in (("K1 batched", "surf", f"{pk}:202"),
+                                  ("K2 batched", "icp", f"{pk}:53")):
+        m = shapes[kname][main]
+        records[kname] = dict(
+            name=f"{kname} ({'knn_grouped' if kname[1] == '1' else 'knn_exact'} over a "
+                 f"sequence axis, torch.func.vmap rule)", route="cuda",
+            source="vil_fusion_tpu_torch/csrc/knn.cu", replaces=replaces,
+            max_abs_err=errs[kname], shape=f"{main} {m['shape']}", ms=m["ms"],
+            plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+            library_ms=None, launches_per_call=m["launches_per_call"],
+            unbatched_x_s_ms=m["unbatched_x_s_ms"], shapes=shapes[kname])
+    return records
+
+
+def _device_kernels(fn):
+    """(device kernels, device ms) that fn() enqueues, as torch.profiler
+    sees them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in ev), sum(e.device_time_total for e in ev) / 1e3
+
+
+def _batched_odometry_path(frames, dev, card, fps_dense):
+    """12b: odometry_step_batched over BATCH_S sequences of phase 4's scans
+    (sequence s from frame BATCH_STRIDE s), the pipeline's odometry
+    configuration (16,384 / 32,768 maps, K1), BATCH_WARMUP + BATCH_TIMED
+    steps. Every batched step against odometry_step on each sequence from
+    the same state (the batched state's row) and the same scan, within
+    BATCH_POSE_TOL_M (free-running, the trajectories would part: one
+    rounding apart at a step, a correspondence gate can flip at the next,
+    as for any perturbation of the single step; PERF.md, section 6), and the
+    batched end errors against the ground truth. The single steps are
+    timed for one sequence's rate. Then BATCH_EXACT_STEPS batched steps of
+    the exact kNN (K2). Returns the launch counts of the two runs and the
+    rates."""
+    import numpy as np
+    import torch
+
+    from vil_fusion_tpu_torch.models import lidar_odometry as lo
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.runtime.pipeline import _odom_config
+
+    cfg = _odom_config(_rig(), None)
+    n = BATCH_WARMUP + BATCH_TIMED
+    pts = torch.stack([torch.stack([torch.from_numpy(frames[BATCH_STRIDE * s + f][1])
+                                    for s in range(BATCH_S)]) for f in range(n)]).to(dev)
+    val = torch.stack([torch.stack([torch.from_numpy(frames[BATCH_STRIDE * s + f][2])
+                                    for s in range(BATCH_S)]) for f in range(n)]).to(dev)
+    states = lo.init_state_batched(cfg, BATCH_S, device=dev)
+    _reset(kc)
+    before_step, outs = [], []
+    for f in range(n):
+        if f == BATCH_WARMUP:
+            torch.cuda.synchronize()
+            t0, k1_before = time.perf_counter(), kc.knn_grouped.launches_batched
+        before_step.append(states)
+        states, out = lo.odometry_step_batched(states, pts[f], val[f], cfg, frame_count=f)
+        outs.append(out)
+    torch.cuda.synchronize()
+    dt_b = time.perf_counter() - t0
+    k1_batched = (kc.knn_grouped.launches_batched - k1_before) / BATCH_TIMED
+    counts = {"batched": {"K1 batched": kc.knn_grouped.launches_batched}}
+    _on_card({f"states.{k}": v for k, v in states._asdict().items()}, dev)
+    # one more step of each kind under the profiler: the card's launches a step
+    kern_b, dev_ms_b = _device_kernels(
+        lambda: lo.odometry_step_batched(states, pts[n - 1], val[n - 1], cfg, frame_count=n))
+    kern_1, dev_ms_1 = _device_kernels(
+        lambda: lo.odometry_step(lo.MapState(*(a[0] for a in states)), pts[n - 1, 0],
+                                 val[n - 1, 0], cfg, frame_count=n))
+
+    # every batched step against the single step from the same state; the
+    # timed steps' single steps give one sequence's rate
+    step_err, dt_single, k1_single = 0.0, 0.0, 0
+    for f in range(n):
+        outs_1 = []
+        torch.cuda.synchronize()
+        t0, before = time.perf_counter(), kc.knn_grouped.launches
+        for s in range(BATCH_S):
+            one = lo.MapState(*(a[s] for a in before_step[f]))
+            outs_1.append(lo.odometry_step(one, pts[f, s], val[f, s], cfg, frame_count=f)[1])
+        torch.cuda.synchronize()
+        if f >= BATCH_WARMUP:
+            dt_single += time.perf_counter() - t0
+            k1_single = (kc.knn_grouped.launches - before) / BATCH_S
+        for s, o in enumerate(outs_1):
+            step_err = max(step_err, max((a[s] - b).abs().max().item()
+                                         for a, b in zip(outs[f], o)))
+    p_b = torch.stack([o[1] for o in outs], dim=1)  # (S, steps, 3)
+    fin = bool(torch.isfinite(p_b).all())
+    if k1_batched != k1_single:
+        raise AssertionError(f"batched: {k1_batched} K1 launches a batched step, {k1_single} a "
+                             f"single sequence's step")
+    if not (fin and step_err <= BATCH_POSE_TOL_M):
+        raise AssertionError(f"batched: poses finite {fin}, max |batched step - single step| "
+                             f"{step_err} m > {BATCH_POSE_TOL_M} m")
+    gt_err = []
+    for s in range(BATCH_S):
+        f0 = BATCH_STRIDE * s
+        R0, p0 = frames[f0][3], frames[f0][4]
+        gt = R0.T @ (frames[f0 + n - 1][4] - p0)
+        gt_err.append(float(np.linalg.norm(p_b[s, -1].cpu().numpy() - gt)))
+    if max(gt_err) >= END_ERR_BOUND_M:
+        raise AssertionError(f"batched: end errors {gt_err} >= {END_ERR_BOUND_M} m")
+    fps_b = BATCH_S * BATCH_TIMED / dt_b
+    fps_1 = BATCH_S * BATCH_TIMED / dt_single
+    print(f"  batched: {BATCH_S} sequences x {BATCH_TIMED} timed steps after {BATCH_WARMUP}: "
+          f"{fps_b:.3f} frames/s aggregate (one sequence's odometry_step alone {fps_1:.3f} "
+          f"frames/s; phase 4's dense pipeline {fps_dense:.3f}) [{card}]", flush=True)
+    print(f"  batched: every step within {step_err:.3g} m of odometry_step from the same state "
+          f"(tolerance {BATCH_POSE_TOL_M} m); end errors against the ground truth "
+          f"{np.round(gt_err, 4).tolist()} m (bound {END_ERR_BOUND_M} m); K1 "
+          f"{k1_batched:g} launches a batched step (one sequence's step: {k1_single:g}); device "
+          f"kernels a step (torch.profiler): batched {kern_b} ({dev_ms_b:.3f} ms of device "
+          f"time), one sequence {kern_1} ({dev_ms_1:.3f} ms)", flush=True)
+
+    # the exact kNN over the batch (K2)
+    cfg_x = cfg._replace(approx_knn=False)
+    states = lo.init_state_batched(cfg_x, BATCH_S, device=dev)
+    before = kc.knn_exact.launches_batched
+    for f in range(BATCH_EXACT_STEPS):
+        states, out = lo.odometry_step_batched(states, pts[f], val[f], cfg_x, frame_count=f)
+    torch.cuda.synchronize()
+    counts["batched exact"] = {"K2 batched": kc.knn_exact.launches_batched - before}
+    if not bool(torch.isfinite(states.p).all()) or counts["batched exact"]["K2 batched"] < 1:
+        raise AssertionError(f"batched exact: poses finite {bool(torch.isfinite(states.p).all())},"
+                             f" launches {counts['batched exact']}")
+    print(f"  batched exact: {BATCH_EXACT_STEPS} steps, K2 batched launches "
+          f"{counts['batched exact']['K2 batched']}", flush=True)
+    return counts, dict(fps_batched=fps_b, fps_single=fps_1, kernels_batched_step=kern_b,
+                        kernels_single_step=kern_1, step_err_m=step_err)
+
+
+def _sharded_inputs(frames, est, dev):
+    """12c / 12d inputs: surf queries and map of phase 3's inputs, a
+    ScanContext database of SC_CAPACITY slots holding the descriptors of
+    phase 4's scans with the last one as the query, and the estimator state
+    phase 7 ended with."""
+    import torch
+
+    from vil_fusion_tpu_torch.models import scancontext as sc
+
+    q, db, v = _kernel_inputs(frames, dev, big=False).cases["surf"][:3]
+    sdb = sc.init_db(SC_CAPACITY, device=dev)
+    descs = [sc.make_descriptor(torch.from_numpy(fr[1]).to(dev), torch.from_numpy(fr[2]).to(dev))
+             for fr in frames]
+    for d in descs[:-1]:
+        sc.add_keyframe(sdb, d)
+    return dict(knn=(q, db, v), sc=(sdb, descs[-1]), ba=est)
+
+
+def _ba_close(name, got, ref, tol, poses=True):
+    """Two (state, feats, cost) within the tolerances `tol` (BA_TOL,
+    BA_STEP_TOL): the cost, and with `poses` every key of `tol` among p, q
+    and inv_depth. Returns the largest |difference| of p, q and the inverse
+    depths."""
+    import numpy as np
+
+    (st, ft, c), (st_r, ft_r, c_r) = got, ref
+    np.testing.assert_allclose(float(c), float(c_r), rtol=tol["cost_rtol"],
+                               atol=tol["cost_atol"], err_msg=name)
+    pairs = {"p": (st.p, st_r.p), "q": (st.q, st_r.q),
+             "inv_depth": (ft.inv_depth, ft_r.inv_depth)}
+    for key, (a, b) in pairs.items():
+        if poses and key in tol:
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=tol[key],
+                                       err_msg=f"{name} {key}")
+    return {k: (a.cpu() - b.cpu()).abs().max().item() for k, (a, b) in pairs.items()}
+
+
+def _ba_step(state, feats, pre, lidar, prior, cfg, lam=1e-4):
+    """One GN step at fixed damping on one device: the unsharded
+    counterpart of sharded_ba.optimize_step_sharded (the cost before it)."""
+    import torch
+
+    from vil_fusion_tpu_torch.models import ba
+
+    sys_ = ba.build_system(state, feats, pre, lidar, prior, cfg)
+    delta, delta_d = ba.schur_solve(sys_, torch.as_tensor(lam, dtype=state.p.dtype,
+                                                          device=state.p.device), cfg)
+    st, ft = ba._apply(state, feats, delta, delta_d, cfg)
+    return st, ft, sys_.cost
+
+
+def _sharded_phase(inp, dev, card, backend="nccl"):
+    """12c: knn_sharded, detect_loop_sharded and optimize_sharded at world
+    size 1 over NCCL on the card against knn_exact, detect_loop and
+    ba.optimize. Returns the sharded results (the reference of 12d).
+    `backend` other than NCCL (gloo: a CPU rehearsal) runs on `dev`."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from vil_fusion_tpu_torch.models import ba, scancontext as sc
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.parallel import mesh as mesh_mod
+    from vil_fusion_tpu_torch.parallel import sharded_ba, sharded_knn, sharded_sc
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.make_mesh(1, device=None if backend == "nccl" else dev)
+        if mesh.device != torch.device(dev):
+            raise AssertionError(f"sharded: the NCCL rank's device is {mesh.device}")
+        q, db, v = inp["knn"]
+        d_s, i_s = sharded_knn.knn_sharded(mesh, q, db, v, k=5)
+        d_x, i_x = kc.knn_exact(q, db, v, k=5)
+        if not (torch.equal(d_s, d_x) and torch.equal(i_s, i_x)):
+            raise AssertionError("sharded: knn_sharded differs from knn_exact")
+        sdb, query = inp["sc"]
+        sc_s = sharded_sc.detect_loop_sharded(mesh, sdb, query)
+        sc_r = sc.detect_loop(sdb, query)
+        if not all(torch.equal(a.reshape(()).to(b.dtype), b.reshape(())) for a, b in zip(sc_s, sc_r)):
+            raise AssertionError(f"sharded: detect_loop_sharded {sc_s} != detect_loop {sc_r}")
+        cfg = ba.BAConfig()
+        step_s = sharded_ba.optimize_step_sharded(mesh, *inp["ba"], cfg)
+        d_step = _ba_close("sharded GN step (world 1) vs one step", step_s,
+                           _ba_step(*inp["ba"], cfg), BA_STEP_TOL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ba_s = sharded_ba.optimize_sharded(mesh, *inp["ba"], cfg)
+        torch.cuda.synchronize()
+        t_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ba_r = ba.optimize(*inp["ba"], cfg)
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - t0
+        d_ba = _ba_close("sharded BA (world 1) vs ba.optimize", ba_s, ba_r, BA_TOL)
+    finally:
+        dist.destroy_process_group()
+    print(f"  sharded ({backend}, world size 1, {mesh.device}): knn_sharded surf {q.shape[0]}x"
+          f"{db.shape[0]} k=5 == knn_exact bit for bit; detect_loop_sharded on {SC_CAPACITY} "
+          f"slots ({int(sdb.count)} descriptors) == detect_loop (slot {int(sc_s[0])}, distance "
+          f"{float(sc_s[1]):.4f}, shift {int(sc_s[2])}); optimize_sharded against ba.optimize on "
+          f"phase 7's final window ({inp['ba'][1].active.shape[0]} feature slots, "
+          f"{cfg.max_iters} LM iterations): max |diff| {_fmt(d_ba)}, cost {float(ba_s[2]):.6g} "
+          f"vs {float(ba_r[2]):.6g}; one GN step max |diff| {_fmt(d_step)}; host "
+          f"{t_s * 1e3:.1f} / {t_r * 1e3:.1f} ms [{card}]", flush=True)
+    return dict(knn=(d_s, i_s), sc=sc_s, ba=ba_s, ba_step=step_s)
+
+
+def _fmt(diffs):
+    return ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+
+
+def _gloo_rank(rank, world, init_file, in_path, out_path, device="cuda:0"):
+    """One rank of 12d: the sharded functions over gloo with CUDA tensors
+    on the one card (`device`). Imports the port alone."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from vil_fusion_tpu_torch.parallel import mesh as mesh_mod
+    from vil_fusion_tpu_torch.parallel import sharded_ba, sharded_knn, sharded_sc
+    from vil_fusion_tpu_torch.models import ba, scancontext as sc
+
+    inp = torch.load(in_path, map_location=device, weights_only=False)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = mesh_mod.make_mesh(world, device=device)
+        out = dict(knn=sharded_knn.knn_sharded(mesh, *inp["knn"], k=5),
+                   sc=sharded_sc.detect_loop_sharded(mesh, sc.ScanContextDB(*inp["sc"][0]),
+                                                     inp["sc"][1]),
+                   ba=sharded_ba.optimize_sharded(mesh, *inp["ba"], ba.BAConfig()),
+                   ba_step=sharded_ba.optimize_step_sharded(mesh, *inp["ba"], ba.BAConfig()),
+                   jax_imported="jax" in sys.modules)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    torch.save(_to_cpu(out), out_path)
+
+
+def _to_cpu(x):
+    """Tensors of a nested structure of tuples / dicts moved to the CPU."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        vals = [_to_cpu(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _gloo_phase(inp, ref, dev, card):
+    """12d: GLOO_RANKS spawned ranks on the one card over gloo with CUDA
+    tensors (file rendezvous under build/), each joined within
+    GLOO_TIMEOUT_S; their results against 12c's: the kNN and ScanContext
+    bit for bit, one GN step within tests/test_parallel.py's one-step
+    tolerances, the full LM loop's cost within its cost tolerance. The LM's
+    poses are printed, not gated: on phase 7's window another reduction
+    order can flip an accept / reject between the iterations and leaves
+    the poses apart by up to a few mm in its weak directions (PERF.md,
+    section 6), where the cost agrees."""
+    import torch
+
+    work = ROOT / "build" / "smoke_gloo"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.iterdir():
+        f.unlink()
+    sdb, query = inp["sc"]
+    in_path = work / "inputs.pt"
+    torch.save(_to_cpu(dict(knn=inp["knn"], sc=(tuple(sdb), query), ba=inp["ba"])), in_path)
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, GLOO_RANKS, str(work / "rendezvous"),
+                                                  str(in_path), str(work / f"rank{r}.pt"),
+                                                  str(dev))) for r in range(GLOO_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + GLOO_TIMEOUT_S
+    try:
+        for r, p in enumerate(procs):
+            p.join(max(0.0, deadline - time.monotonic()))
+            if p.exitcode != 0:
+                raise AssertionError(f"gloo: rank {r} exit code {p.exitcode} (None: hung past "
+                                     f"{GLOO_TIMEOUT_S} s)")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    d_ref, i_ref = (t.cpu() for t in ref["knn"])
+    for r in range(GLOO_RANKS):
+        res = torch.load(work / f"rank{r}.pt", weights_only=False)
+        if res["jax_imported"]:
+            raise AssertionError(f"gloo: rank {r} imported jax")
+        if not (torch.equal(res["knn"][0], d_ref) and torch.equal(res["knn"][1], i_ref)):
+            raise AssertionError(f"gloo: rank {r}: knn_sharded differs from 12c's")
+        if [float(a) for a in res["sc"]] != [float(a) for a in ref["sc"]]:
+            raise AssertionError(f"gloo: rank {r}: detect_loop_sharded {res['sc']} != {ref['sc']}")
+        d_step = _ba_close(f"gloo rank {r} optimize_step_sharded vs 12c", res["ba_step"],
+                           _to_cpu(ref["ba_step"]), BA_STEP_TOL)
+        d_ba = _ba_close(f"gloo rank {r} optimize_sharded vs 12c", res["ba"], _to_cpu(ref["ba"]),
+                         BA_TOL, poses=False)
+    print(f"  gloo ({GLOO_RANKS} ranks on {dev}): knn_sharded == 12c bit for bit, "
+          f"detect_loop_sharded == 12c, one GN step within tests/test_parallel.py's one-step "
+          f"tolerances of 12c (max |diff| {_fmt(d_step)}), optimize_sharded's cost "
+          f"{float(res['ba'][2]):.6g} against 12c's {float(ref['ba'][2]):.6g} (rtol "
+          f"{BA_TOL['cost_rtol']}), its poses apart by {_fmt(d_ba)}; {wall:.1f} s with the "
+          f"ranks' start [{card}]", flush=True)
+
+
+def _preint_phase(dev, card):
+    """12e: preintegrate(parallel=True) against the sequential loop on the
+    card, tests/test_imu.py:131-161's 64-sample segment with 20 zero-dt
+    steps and its tolerances; host ms (median of 10, ending in a
+    synchronisation) and device kernels (torch.profiler) of each."""
+    import numpy as np
+    import torch
+
+    from vil_fusion_tpu_torch.models import imu
+
+    rng = np.random.default_rng(7)
+    n = 64
+    acc = rng.normal([0.2, -0.1, 9.81], 0.4, (n, 3)).astype(np.float32)
+    gyr = rng.normal([0.02, 0.3, -0.1], 0.1, (n, 3)).astype(np.float32)
+    dt = np.full((n - 1,), 0.005, np.float32)
+    dt[-20:] = 0.0
+    args = [torch.from_numpy(x).to(dev) for x in
+            (acc, gyr, dt, np.array([0.05, -0.02, 0.01], np.float32),
+             np.array([0.002, 0.001, -0.003], np.float32))]
+    res, host_ms, kernels = {}, {}, {}
+    for parallel in (False, True):
+        res[parallel] = imu.preintegrate(*args, parallel=parallel)
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imu.preintegrate(*args, parallel=parallel)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        host_ms[parallel] = sorted(times)[len(times) // 2]
+        kernels[parallel] = _device_kernels(lambda: imu.preintegrate(*args, parallel=parallel))[0]
+    par, seq = res[True], res[False]
+    for k, rtol, atol in (("dp", 1e-5, 1e-6), ("dq", 1e-5, 1e-6), ("dv", 1e-5, 1e-6),
+                          ("jac", 1e-4, 1e-5), ("cov", 1e-4, 1e-8)):
+        np.testing.assert_allclose(getattr(par, k).cpu().numpy(), getattr(seq, k).cpu().numpy(),
+                                   rtol=rtol, atol=atol, err_msg=f"preintegration {k}")
+    print(f"  preintegration (64 samples, 20 zero-dt steps): parallel == sequential within "
+          f"tests/test_imu.py's tolerances; host ms (median of 10) parallel "
+          f"{host_ms[True]:.3f} / sequential {host_ms[False]:.3f}, device kernels "
+          f"{kernels[True]} / {kernels[False]} [{card}]", flush=True)
+    return dict(host_ms_parallel=host_ms[True], host_ms_sequential=host_ms[False],
+                kernels_parallel=kernels[True], kernels_sequential=kernels[False])
+
+
 def main() -> int:
     import torch
 
@@ -1698,7 +2219,7 @@ def main() -> int:
 
 
 def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
-    """Phases 2-11 of main(), the simulator's frames made in `pool`."""
+    """Phases 2-12 of main(), the simulator's frames made in `pool`."""
     import numpy as np
     import torch
 
@@ -1733,11 +2254,11 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
 
     # phase 4: the dense path
     print(f"path dense: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
-    counts, fps, pipe = _lidar_path("dense", frames, WARMUP_FRAMES, dev, card,
-                                    need={"K1": 1, "K2": 0}, prewarm=True)
+    counts, fps_dense, pipe = _lidar_path("dense", frames, WARMUP_FRAMES, dev, card,
+                                          need={"K1": 1, "K2": 0}, prewarm=True)
     _pose_errors("dense", pipe.outputs.lidar_p, pipe.outputs.lidar_q, frames, END_ERR_BOUND_M)
     del pipe
-    print(f"  dense: {fps:.3f} frames/s over {TIMED_FRAMES} frames after {WARMUP_FRAMES} "
+    print(f"  dense: {fps_dense:.3f} frames/s over {TIMED_FRAMES} frames after {WARMUP_FRAMES} "
           f"warm-up frames [{card}]", flush=True)
     add("dense", counts)
 
@@ -1787,19 +2308,18 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
 
     # phase 7: the whole vil frame, then the cold start
     print(f"path vil: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
-    counts, fps_sync, vio_sync = _vil_path(frames[:n_vil], images[:n_vil], dev, card)
+    counts, fps_sync, vio_sync, est_state = _vil_path(frames[:n_vil], images[:n_vil], dev, card)
     add("vil", counts)
     add("cold start", _cold_start(dev, lap))
 
     # phase 8: the same frames at sync_depth=2 (the deferred path)
     print(f"path deferred: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
-    counts, fps_deferred, vio_deferred = _vil_path(frames[:n_vil], images[:n_vil], dev, card,
-                                                   sync_depth=2)
+    counts, fps_deferred, vio_deferred, _ = _vil_path(frames[:n_vil], images[:n_vil], dev, card,
+                                                      sync_depth=2)
     add("deferred", counts)
     print(f"  deferred: frames/s sync_depth=0 {fps_sync:.3f}, sync_depth=2 {fps_deferred:.3f}; "
           f"largest distance between the two trajectories "
-          f"{np.abs(vio_deferred - vio_sync).max():.4f} m (not gated: the card's atomic sums "
-          f"make runs differ) [{card}]", flush=True)
+          f"{np.abs(vio_deferred - vio_sync).max():.4e} m (not gated) [{card}]", flush=True)
 
     # phase 9: tests/test_e2e_loop.py's lap with the visual loop
     print(f"path loop: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
@@ -1818,12 +2338,29 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
     add("synthetic", _synthetic_path(dev, card))
     print(f"  replay phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+    # phase 12: the parallel and batched paths
+    print(f"path parallel: [{time.perf_counter() - t_start:.1f} s after the device check]",
+          flush=True)
+    t0 = time.perf_counter()
+    records.update(_batched_kernel_phase(frames, dev))
+    launches.update({k: {} for k in ("K1 batched", "K2 batched")})
+    batch_counts, batch_stats = _batched_odometry_path(frames, dev, card, fps_dense)
+    for path, c in batch_counts.items():
+        add(path, c)
+    sharded_inp = _sharded_inputs(frames, est_state, dev)
+    sharded_ref = _sharded_phase(sharded_inp, dev, card)
+    _gloo_phase(sharded_inp, sharded_ref, dev, card)
+    preint_stats = _preint_phase(dev, card)
+    records["K1 batched"].update(batched_odometry=batch_stats, preintegration=preint_stats)
+    print(f"  parallel phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
     on_path = {"K1": ("dense", "front end", "vil", "deferred", "replay", "synthetic"),
                "K2": ("dense", "sparse", "front end", "vil", "cold start", "deferred", "loop",
                       "synthetic"),
                "K2 densify": ("loop",),
                "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",),
-               "Morton keys": ("sparse",)}
+               "Morton keys": ("sparse",), "K1 batched": ("batched",),
+               "K2 batched": ("batched exact",)}
     for kname, rec in records.items():
         rec["launches_by_path"] = launches[kname]
         rec["launches"] = sum(launches[kname].values())

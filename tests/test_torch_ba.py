@@ -220,8 +220,17 @@ def test_lidar_held_depths_constant(prob, port_opt):
 
 
 def test_sharded_ba_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """BAConfig(sharded=True) raises while no mesh is active (the sharded BA
+    itself: tests/test_torch_parallel.py) and passes the check with one."""
+    from vil_fusion_tpu_torch.parallel import mesh
+
+    with pytest.raises(RuntimeError, match="no active mesh"):
         tba.check_config(tba.BAConfig(sharded=True))
+    mesh.set_active_mesh(mesh.Mesh(None, 0, 1, torch.device("cpu")))
+    try:
+        tba.check_config(tba.BAConfig(sharded=True))
+    finally:
+        mesh.set_active_mesh(None)
 
 
 def test_re_anchor_restores_frame0(prob):

@@ -2,6 +2,9 @@
 and K2) and the Morton-key kernels against their plain versions at the main paths' shapes, the
 dispatcher's routing on the card, the LiDAR-only slice, the vil front end and
 one fused estimator step on the card against the same code on the CPU, the
+batched K1 / K2 launch (a sequence axis, and torch.func.vmap of the
+wrappers) against unbatched launches and batched odometry against single
+steps, the
 deferred pipeline (sync_depth=2) on the card against the CPU, the Schur
 solve's Cholesky fallback on the card, the device raycaster against itself
 on the CPU, and a KITTI odometry replay into a pipeline on the card.
@@ -124,6 +127,108 @@ def test_cuda_kernel_ties_to_lower_index(cuda_device, nq, nd, k, grouped, form):
     assert torch.equal(d[:, :kk], d_r[:, :kk])
     assert torch.equal(i[:, :kk].long(), i_r)
     assert (d[:, 0] == 0).any() and (k == 1 or (d[:, 1:] == d[:, :-1]).any())
+
+
+@pytest.mark.parametrize("form", ["expanded", "diff"])
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("nq,nd,k", [(8192, 32768, 5), (2048, 16384, 5), (2048, 51200, 1),
+                                     (1, 130, 3), (127, 4097, 8), (513, 115200, 1),
+                                     (192, 115200, 3), (77, 130, 3)])
+def test_cuda_batched_launch_equals_unbatched(cuda_device, nq, nd, k, grouped, form, batch):
+    """K1 / K2 over a sequence axis in one launch: row s bit for bit the
+    unbatched launch on sequence s (distances and indices), with
+    per-sequence databases and with one database shared by every sequence
+    (stride 0); one launch counted for the batch, whose kernels are the
+    batched plan's (one, or two with the merge); and equal to the plain
+    batched version within the unbatched kernel's tolerance."""
+    rng = np.random.default_rng(batch * 7 + nq + nd)
+    q = torch.from_numpy(rng.uniform(-50, 50, (batch, nq, 3)).astype(np.float32)).to(cuda_device)
+    db = torch.from_numpy(rng.uniform(-50, 50, (batch, nd, 3)).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.random((batch, nd)) < 0.9).to(cuda_device)
+    kern = kc.knn_grouped if grouped else kc.knn_exact
+    sm_count = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    before, before_kernels = kern.launches, kc.kernels_enqueued()
+    d, i = kern(q, db, v, k=k, form=form)
+    assert kern.launches == before + 1
+    assert kc.kernels_enqueued() - before_kernels == \
+        1 + kc.plan(nq, nd, k, sm_count, grouped, batch).merge
+    assert kern.last_call == (batch, nq, nd, k)
+    d_sh, i_sh = kern(q, db[0], v[0], k=k, form=form)
+    for s in range(batch):
+        d1, i1 = kern(q[s], db[s], v[s], k=k, form=form)
+        assert torch.equal(d[s], d1) and torch.equal(i[s], i1), f"sequence {s}"
+        d2, i2 = kern(q[s], db[0], v[0], k=k, form=form)
+        assert torch.equal(d_sh[s], d2) and torch.equal(i_sh[s], i2), f"shared, sequence {s}"
+    plain = kc.knn_grouped_plain if grouped else kc.knn_exact_plain
+    d_p, _ = plain(q, db, v, k=k, form=form)
+    fin = torch.isfinite(d_p)
+    assert torch.equal(fin, torch.isfinite(d))
+    assert (d[fin] - d_p[fin]).abs().max().item() <= 1e-6 * d_p[fin].max().item()
+
+
+@pytest.mark.parametrize("grouped", [True, False])
+def test_cuda_vmap_rule_is_one_launch(cuda_device, grouped):
+    """torch.func.vmap of the wrappers is the batched launch: one counted
+    launch for 8 sequences, rows equal to the unbatched launches', with a
+    vmapped and with a shared database, and nested vmap (4 x 2)."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.uniform(-50, 50, (8, 2048, 3)).astype(np.float32)).to(cuda_device)
+    db = torch.from_numpy(rng.uniform(-50, 50, (8, 16384, 3)).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.random((8, 16384)) < 0.9).to(cuda_device)
+    kern = kc.knn_grouped if grouped else kc.knn_exact
+
+    def call(a, b, c):
+        return kern(a, b, c, k=5)
+
+    for args, in_dims in (((q, db, v), 0), ((q, db[3], v[3]), (0, None, None))):
+        before = kern.launches
+        d, i = torch.func.vmap(call, in_dims=in_dims)(*args)
+        assert kern.launches == before + 1
+        for s in range(8):
+            d1, i1 = call(q[s], *(a[s] if in_dims == 0 else a for a in args[1:]))
+            assert torch.equal(d[s], d1) and torch.equal(i[s], i1)
+    before = kern.launches
+    d, i = torch.func.vmap(torch.func.vmap(call))(q.view(4, 2, 2048, 3), db.view(4, 2, 16384, 3),
+                                                  v.view(4, 2, 16384))
+    assert kern.launches == before + 1 and d.shape == (4, 2, 2048, 5)
+    d1, i1 = call(q[5], db[5], v[5])
+    assert torch.equal(d[2, 1], d1) and torch.equal(i[2, 1], i1)
+
+
+def test_cuda_batched_odometry_matches_single(cuda_device):
+    """odometry_step_batched on the card (S = 3, 16 x 360 scans, K1): one K1
+    launch a call over the three sequences (as many as one sequence's step
+    makes), every step's poses within 1e-4 m of odometry_step on each
+    sequence from the same state (the batched state's row)."""
+    from vil_fusion_tpu_torch.models import lidar_features as lf
+    from vil_fusion_tpu_torch.models import lidar_odometry as lo
+    from vil_fusion_tpu_torch.runtime import sim
+
+    cfg = lo.OdomConfig(lidar=lf.LidarConfig(n_scan=16, width=360, fov_up_deg=20.0,
+                                             fov_down_deg=-20.0, min_range=1.0, edge_cap=256,
+                                             surf_cap=1024), edge_map_cap=2048, surf_map_cap=4096)
+    scene = sim.RaycastScene()
+    scans = [[sim.simulate_lidar_scan(scene, np.eye(3), np.array([3.0 + 2 * s + 0.3 * f, 0.5 * s,
+                                                                  1.5]), n_scan=16, width=360,
+                                      fov_up_deg=20.0, fov_down_deg=-20.0) for s in range(3)]
+             for f in range(4)]
+    pts = torch.from_numpy(np.stack([[p for p, _ in r] for r in scans]).astype(np.float32))
+    val = torch.from_numpy(np.stack([[v for _, v in r] for r in scans]))
+    pts, val = pts.to(cuda_device), val.to(cuda_device)
+    states = lo.init_state_batched(cfg, 3, device=cuda_device)
+    for f in range(4):
+        before = kc.knn_grouped.launches
+        prev = states
+        states, out = lo.odometry_step_batched(states, pts[f], val[f], cfg, frame_count=f)
+        batched = kc.knn_grouped.launches - before
+        for s in range(3):
+            before = kc.knn_grouped.launches
+            _, o = lo.odometry_step(lo.MapState(*(a[s] for a in prev)), pts[f, s], val[f, s], cfg,
+                                    frame_count=f)
+            assert batched == kc.knn_grouped.launches - before
+            for a, b in zip(out, o):
+                torch.testing.assert_close(a[s], b, atol=1e-4, rtol=0)
 
 
 def _clustered(nq, nd, seed, n_centers=40):

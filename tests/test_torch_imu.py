@@ -109,8 +109,97 @@ def test_padding_steps_are_identity():
     for k in ("dp", "dq", "dv", "jac", "cov"):
         np.testing.assert_allclose(getattr(full, k).numpy(), getattr(short, k).numpy(),
                                    rtol=1e-6, atol=1e-9, err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        timu.preintegrate(_t(acc), _t(gyr), _t(dt), z, z, parallel=True)
+    # the log-depth path: padding leaves are exact identities there too
+    full = timu.preintegrate(_t(acc), _t(gyr), _t(dt), z, z, parallel=True)
+    short = timu.preintegrate(_t(acc[:m]), _t(gyr[:m]), _t(dt[: m - 1]), z, z, parallel=True)
+    for k in ("dp", "dq", "dv", "jac", "cov"):
+        np.testing.assert_allclose(getattr(full, k).numpy(), getattr(short, k).numpy(),
+                                   rtol=1e-5, atol=1e-8, err_msg=k)
+
+
+def _random_segment(n=64, pad=20, seed=7):
+    """tests/test_imu.py:131-142's segment: random samples, 63 steps of which
+    the last `pad` have dt = 0."""
+    rng = np.random.default_rng(seed)
+    acc = rng.normal([0.2, -0.1, 9.81], 0.4, (n, 3)).astype(np.float32)
+    gyr = rng.normal([0.02, 0.3, -0.1], 0.1, (n, 3)).astype(np.float32)
+    dt = np.full((n - 1,), 0.005, np.float32)
+    dt[n - 1 - pad:] = 0.0
+    ba = np.array([0.05, -0.02, 0.01], np.float32)
+    bg = np.array([0.002, 0.001, -0.003], np.float32)
+    return acc, gyr, dt, ba, bg
+
+
+def _assert_preint_close(got, want, what):
+    """tests/test_imu.py:152-160's tolerances."""
+    for k in ("dp", "dq", "dv"):
+        np.testing.assert_allclose(np.asarray(getattr(got, k)), np.asarray(getattr(want, k)),
+                                   rtol=1e-5, atol=1e-6, err_msg=f"{what} {k}")
+    np.testing.assert_allclose(np.asarray(got.jac), np.asarray(want.jac), rtol=1e-4, atol=1e-5,
+                               err_msg=f"{what} jac")
+    np.testing.assert_allclose(np.asarray(got.cov), np.asarray(want.cov), rtol=1e-4, atol=1e-8,
+                               err_msg=f"{what} cov")
+
+
+@pytest.mark.parametrize("segment", ["random", "simulator", "no padding", "one step"])
+def test_preintegrate_parallel_matches_reference(segment):
+    """preintegrate(parallel=True) against the reference's log-depth
+    preintegration and its sequential one, and against the port's
+    sequential loop, on tests/test_imu.py:131-161's segment (20 zero-dt
+    steps), the simulator's noisy, biased segment, a segment without
+    padding and a single step; its tolerances."""
+    if segment == "simulator":
+        _, _, acc, gyr, dt = _segment()
+        ba = np.array([0.04, -0.02, 0.01], np.float32)
+        bg = np.array([0.002, 0.001, -0.003], np.float32)
+    else:
+        n, pad = {"random": (64, 20), "no padding": (33, 0), "one step": (2, 0)}[segment]
+        acc, gyr, dt, ba, bg = _random_segment(n, pad)
+    jx = [jnp.asarray(x) for x in (acc, gyr, dt, ba, bg)]
+    tx = [_t(x) for x in (acc, gyr, dt, ba, bg)]
+    par = timu.preintegrate(*tx, TNOISE, parallel=True)
+    _assert_preint_close(par, jimu.preintegrate(*jx, NOISE, parallel=True), "vs JAX parallel")
+    _assert_preint_close(par, jimu.preintegrate(*jx, NOISE), "vs JAX sequential")
+    _assert_preint_close(par, timu.preintegrate(*tx, TNOISE), "vs port sequential")
+    assert float(par.dt_sum) == float(timu.preintegrate(*tx, TNOISE).dt_sum)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 7, 8, 33, 63])
+def test_associative_scan_matches_jax(n):
+    """The hand-written log-depth scan combines in jax.lax.associative_scan's
+    order: every prefix of a chain of normalized quaternion products within
+    1e-6 (values of order one) of JAX's and 1e-5 of the sequential
+    products; the (J2 J1, J2 P1 J2^T + P2) pairs within 1e-5 of JAX's (the
+    15-term dot products of a 15x15 matmul are summed in another order by
+    XLA and by torch's matmul, so each product rounds apart)."""
+    rng = np.random.default_rng(n)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    J = (np.eye(15) + 0.05 * rng.normal(size=(n, 15, 15))).astype(np.float32)
+    P = (0.01 * rng.normal(size=(n, 15, 15))).astype(np.float32)
+    P = P @ P.transpose(0, 2, 1)
+
+    from vil_fusion_tpu.ops import lie as jlie
+    from vil_fusion_tpu_torch.ops import lie as tlie
+
+    (tq,) = timu.associative_scan(lambda x, y: (tlie.qnormalize(tlie.qmul(x[0], y[0])),), (_t(q),))
+    jq = jax.lax.associative_scan(lambda x, y: jlie.qnormalize(jlie.qmul(x, y)), jnp.asarray(q))
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=1e-6, atol=1e-6)
+    seq = [q[0]]
+    for i in range(1, n):
+        seq.append(np.asarray(jlie.qnormalize(jlie.qmul(jnp.asarray(seq[-1]), jnp.asarray(q[i])))))
+    np.testing.assert_allclose(tq.numpy(), np.stack(seq), rtol=1e-5, atol=1e-5)
+
+    def comb_t(x, y):
+        return y[0] @ x[0], y[0] @ x[1] @ y[0].transpose(-1, -2) + y[1]
+
+    def comb_j(x, y):
+        return y[0] @ x[0], y[0] @ x[1] @ jnp.swapaxes(y[0], -1, -2) + y[1]
+
+    tJ, tP = timu.associative_scan(comb_t, (_t(J), _t(P)))
+    jJ, jP = jax.lax.associative_scan(comb_j, (jnp.asarray(J), jnp.asarray(P)))
+    np.testing.assert_allclose(tJ.numpy(), np.asarray(jJ), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tP.numpy(), np.asarray(jP), rtol=1e-5, atol=1e-5)
 
 
 def test_residual_and_sqrt_information_match_reference(preint):

@@ -438,7 +438,7 @@ def _launch_split(lib, q, db, v, k, grouped, form, n_split, chunk):
     part_i = torch.empty((nq, n_split, k), dtype=torch.int32, device=q.device)
     err = lib.vil_knn_launch(
         q.data_ptr(), db.data_ptr(), v.data_ptr(), nq, db.shape[0], k, int(grouped),
-        int(form == "diff"), chunk, n_split, part_d.data_ptr(), part_i.data_ptr(),
+        int(form == "diff"), chunk, n_split, 1, 0, 0, 0, part_d.data_ptr(), part_i.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"vil_knn_launch: cudaError {err}")

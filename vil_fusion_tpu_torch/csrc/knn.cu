@@ -99,6 +99,17 @@
 //     lane folds its own run of chunks with independent loads, then
 //     log2(lanes) shuffle rounds fold neighbouring lanes' lists, ordered by
 //     (distance, index), so the order of the folds does not matter.
+//   * A sequence axis (the reference's jax.vmap of the odometry step,
+//     lidar_odometry.py:424, turns the K1 / K2 pallas_call into one grid
+//     with a leading sequence dimension): blockIdx.z is the sequence, whose
+//     queries, database and validity sit at z times their strides (a
+//     stride of 0: one side shared by every sequence) and whose lists and
+//     results at z times theirs; the merge takes the sequence from
+//     blockIdx.y. A batch of S small calls becomes one launch with S times
+//     the blocks, which fills the card where one call cannot (an edge
+//     association has 16 query blocks); the wrapper's plan counts the
+//     sequences' blocks when it splits the database. Rows do not depend on
+//     the batch or the split.
 //   * K3 is a whole call in two kernels and nothing else (a side the
 //     caller did not sort adds its two Morton-key kernels and the sort).
 //     On a lidar map it skips about 99% of its blocks, so what bounds it is
@@ -166,6 +177,13 @@ constexpr int kSubs = kGroup / kSub;  // sub-blocks a group
 // every <<<>>> below, so that a caller can read how many kernels one call of
 // an entry point cost (vil_knn_kernels_enqueued).
 std::atomic<long long> g_enqueued{0};
+
+// Per-sequence strides of a batched K1 / K2 launch, in elements: floats for
+// q and db (3 a point), bytes for valid. 0 = one side shared by every
+// sequence.
+struct SeqStrides {
+  long long q, db, valid;
+};
 
 __device__ __forceinline__ float sqnorm3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
@@ -264,9 +282,11 @@ __device__ __forceinline__ float above(float x) {
   return x < INFINITY ? __int_as_float(__float_as_int(x) + 1) : x;
 }
 
-// Block (x, y): queries [128 x, 128 (x+1)), one a thread; database columns
-// [y chunk, (y+1) chunk). Writes each row's ascending list to
-// dst[(row n_split + y) K ..], which is the result itself when n_split == 1.
+// Block (x, y, z): sequence z (its q, db and valid at z times their strides,
+// its dst at z nq n_split K), queries [128 x, 128 (x+1)), one a thread;
+// database columns [y chunk, (y+1) chunk). Writes each row's ascending list
+// to dst[(row n_split + y) K ..], which is the result itself when
+// n_split == 1. A sequence's rows are those of an unbatched launch on it.
 //
 // K2 at k = 1 keeps a running best with a compare and two selects a pair,
 // columns in order. Every other instance scans: a group of 128 columns lies
@@ -285,8 +305,17 @@ template <int K, bool GROUPED, bool DIFF>
 __global__ void __launch_bounds__(kThreads)
 knn_dense_kernel(const float* __restrict__ q, const float* __restrict__ db,
                  const unsigned char* __restrict__ valid, int nq, int nd, int chunk,
-                 int n_split, float* __restrict__ dst_d, int* __restrict__ dst_i) {
+                 int n_split, SeqStrides st, float* __restrict__ dst_d,
+                 int* __restrict__ dst_i) {
   __shared__ float4 tile[2][kGroup];
+  {  // this block's sequence (gridDim.z): a stride of 0 is a side shared by all
+    const long long z = blockIdx.z;
+    q += z * st.q;
+    db += z * st.db;
+    valid += z * st.valid;
+    dst_d += z * (long long)nq * n_split * K;
+    dst_i += z * (long long)nq * n_split * K;
+  }
   constexpr bool kBest1 = K == 1 && !GROUPED;
   const int t = threadIdx.x;
   // where this thread's column is staged
@@ -821,7 +850,8 @@ morton_key_kernel(const float* __restrict__ pts, const unsigned char* __restrict
   }
 }
 
-// Merge of the chunks' lists: part_* (nq, n_split, K) -> out_* (nq, K). A
+// Merge of the chunks' lists: part_* (batch, nq, n_split, K) -> out_*
+// (batch, nq, K), sequence blockIdx.y. A
 // query has `lanes` neighbouring threads of one warp (a power of two <= 32,
 // so a block of 128 threads holds whole queries). Lane l folds chunks
 // [l per, (l+1) per) into a register list, reading each list with K
@@ -833,6 +863,13 @@ __global__ void __launch_bounds__(kThreads)
 knn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
                  int nq, int n_split, int lanes, float* __restrict__ out_d,
                  int* __restrict__ out_i) {
+  {  // sequence blockIdx.y
+    const long long z = blockIdx.y;
+    part_d += z * (long long)nq * n_split * K;
+    part_i += z * (long long)nq * n_split * K;
+    out_d += z * (long long)nq * K;
+    out_i += z * (long long)nq * K;
+  }
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   const int row = tid / lanes, lane = tid % lanes;
   float bd[K];
@@ -880,27 +917,30 @@ knn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_
 }
 
 template <int K>
-void launch_merge(const float* part_d, const int* part_i, int nq, int n_split,
+void launch_merge(const float* part_d, const int* part_i, int nq, int n_split, int batch,
                   float* out_d, int* out_i, cudaStream_t stream) {
   int lanes = 1;
   while (lanes < n_split && lanes < 32) lanes <<= 1;
   const long long threads = (long long)nq * lanes;
-  knn_merge_kernel<K><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      part_d, part_i, nq, n_split, lanes, out_d, out_i);
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), batch);
+  knn_merge_kernel<K><<<grid, kThreads, 0, stream>>>(part_d, part_i, nq, n_split, lanes, out_d,
+                                                     out_i);
   g_enqueued.fetch_add(1, std::memory_order_relaxed);
 }
 
 // n_split == 1: the dense kernel writes out_* itself and part_* is not read.
+// A batch of sequences is one grid (z) and, with a split, one merge (y).
 template <int K>
 void launch_dense(const float* q, const float* db, const unsigned char* valid, int nq,
-                  int nd, bool grouped, bool diff, int chunk, int n_split, float* part_d,
-                  int* part_i, float* out_d, int* out_i, cudaStream_t stream) {
-  const dim3 grid((nq + kThreads - 1) / kThreads, n_split);
+                  int nd, bool grouped, bool diff, int chunk, int n_split, int batch,
+                  SeqStrides st, float* part_d, int* part_i, float* out_d, int* out_i,
+                  cudaStream_t stream) {
+  const dim3 grid((nq + kThreads - 1) / kThreads, n_split, batch);
   float* dst_d = n_split == 1 ? out_d : part_d;
   int* dst_i = n_split == 1 ? out_i : part_i;
 #define VIL_KNN_DENSE(G, D)                                \
   knn_dense_kernel<K, G, D><<<grid, kThreads, 0, stream>>>( \
-      q, db, valid, nq, nd, chunk, n_split, dst_d, dst_i)
+      q, db, valid, nq, nd, chunk, n_split, st, dst_d, dst_i)
   if (grouped) {
     if (diff) VIL_KNN_DENSE(true, true); else VIL_KNN_DENSE(true, false);
   } else {
@@ -908,7 +948,7 @@ void launch_dense(const float* q, const float* db, const unsigned char* valid, i
   }
 #undef VIL_KNN_DENSE
   g_enqueued.fetch_add(1, std::memory_order_relaxed);
-  if (n_split > 1) launch_merge<K>(part_d, part_i, nq, n_split, out_d, out_i, stream);
+  if (n_split > 1) launch_merge<K>(part_d, part_i, nq, n_split, batch, out_d, out_i, stream);
 }
 
 // The box kernel where the database has a tile, then the search over an
@@ -934,20 +974,27 @@ void launch_sparse(const float* q, const long long* q_perm, int nq, const float*
 
 }  // namespace
 
-// q (nq, 3) f32, db (nd, 3) f32, valid (nd,) bool, all contiguous on the
-// current device; chunk is a multiple of 128 and n_split * chunk >= nd;
-// out_* hold (nq, k) and, where n_split > 1, part_* (nq, n_split, k) (not
+// `batch` sequences in one launch: sequence s reads q (nq, 3) f32 at
+// q + s q_stride floats, db (nd, 3) f32 at db + s db_stride floats and
+// valid (nd,) bool at valid + s valid_stride bytes (a stride of 0: that side
+// is shared by every sequence), all contiguous on the current device;
+// chunk is a multiple of 128 and n_split * chunk >= nd; out_* hold
+// (batch, nq, k) and, where n_split > 1, part_* (batch, nq, n_split, k) (not
 // read otherwise: one kernel then, two with the merge). diff != 0 selects
-// the difference form. Launches on `stream`, allocates nothing, does not
-// synchronise. Returns cudaGetLastError().
+// the difference form. Row s of the result is bit for bit that of a launch
+// with batch 1 on sequence s. Launches on `stream`, allocates nothing, does
+// not synchronise. Returns cudaGetLastError().
 extern "C" int vil_knn_launch(const void* q, const void* db, const void* valid,
                               int nq, int nd, int k, int grouped, int diff,
-                              int chunk, int n_split, void* part_d, void* part_i,
-                              void* out_d, void* out_i, void* stream) {
+                              int chunk, int n_split, int batch, long long q_stride,
+                              long long db_stride, long long valid_stride, void* part_d,
+                              void* part_i, void* out_d, void* out_i, void* stream) {
   if (nq <= 0 || n_split <= 0 || chunk <= 0 || chunk % kGroup != 0 ||
-      (long long)n_split * chunk < nd) {
+      (long long)n_split * chunk < nd || batch <= 0 || batch > 65535 || q_stride < 0 ||
+      db_stride < 0 || valid_stride < 0) {
     return (int)cudaErrorInvalidValue;
   }
+  const SeqStrides st{q_stride, db_stride, valid_stride};
   const float* qf = static_cast<const float*>(q);
   const float* dbf = static_cast<const float*>(db);
   const unsigned char* vb = static_cast<const unsigned char*>(valid);
@@ -960,7 +1007,8 @@ extern "C" int vil_knn_launch(const void* q, const void* db, const void* valid,
   switch (k) {
 #define VIL_KNN_CASE(KK)                                                        \
   case KK:                                                                      \
-    launch_dense<KK>(qf, dbf, vb, nq, nd, g, df, chunk, n_split, pd, pi, od, oi, s); \
+    launch_dense<KK>(qf, dbf, vb, nq, nd, g, df, chunk, n_split, batch, st, pd, pi, od, oi, \
+                     s);                                                                \
     break;
     VIL_KNN_CASE(1)
     VIL_KNN_CASE(2)

@@ -55,8 +55,8 @@ class BAConfig(NamedTuple):
     # inverse-depth floor: only guards against sign flips (behind-camera);
     # far below any real landmark's inverse depth
     depth_min: float = 1e-4
-    # landmark factors sharded over several devices (the reference's
-    # parallel/sharded_ba): not ported, raises
+    # landmark factors sharded over the active mesh (parallel/sharded_ba.py,
+    # parallel/mesh.set_active_mesh); the estimator dispatches on it
     sharded: bool = False
 
 
@@ -70,10 +70,11 @@ class System(NamedTuple):
 
 
 def check_config(cfg: BAConfig):
+    """BAConfig(sharded=True) needs an active mesh (parallel/mesh.py)."""
     if cfg.sharded:
-        raise NotImplementedError(
-            "BAConfig(sharded=True): the landmark-sharded BA (parallel/sharded_ba) is not "
-            "ported yet (ROADMAP.md, section 1: parallel/)")
+        from vil_fusion_tpu_torch.parallel import mesh
+
+        mesh.get_active_mesh()  # raises without one
 
 
 def _frames(state: WindowState, idx) -> dict:
@@ -221,12 +222,15 @@ def scatter_quadratic(H, b, r, J, ix, sign: float = -1.0):
     return H, b
 
 
-def accumulate_proj_quadratic(H, b, Hpd, Hd, bd, r, Jp, Jd, ix, f_idx):
-    """Projection-factor accumulation. Each factor's 19 pose columns are
-    scattered into the D-dim tangent (the reference multiplies by a one-hot
-    selection matrix: the same values, since a factor's 19 indices are
-    distinct), so H and b are one matmul each; the depth couplings sum over
-    each feature's factors."""
+def accumulate_proj_quadratic(H, b, Hpd, Hd, bd, r, Jp, Jd, ix):
+    """Projection-factor accumulation over factors laid out as _proj_blocks
+    lays them out (row n = f * K + j: each feature's K factors in a row).
+    Each factor's 19 pose columns are scattered into the D-dim tangent (the
+    reference multiplies by a one-hot selection matrix: the same values,
+    since a factor's 19 indices are distinct), so H and b are one matmul
+    each; the depth couplings sum each feature's K rows (a reduction in a
+    fixed order: the reference's scatter-add, without the CUDA index_add's
+    atomics, whose order changes from run to run)."""
     F = Hd.shape[0]
     n, nr, _ = Jp.shape
     Jf = torch.zeros((n, nr, H.shape[0]), dtype=H.dtype, device=H.device)
@@ -235,19 +239,18 @@ def accumulate_proj_quadratic(H, b, Hpd, Hd, bd, r, Jp, Jd, ix, f_idx):
     H = H + Jflat.T @ Jflat
     b = b - Jflat.T @ r.reshape(-1)
     JfTJd = torch.einsum("nrD,nr->nD", Jf, Jd)  # (N, D)
-    zF = torch.zeros((F,), dtype=H.dtype, device=H.device)
-    Hpd = Hpd + torch.zeros((F, H.shape[0]), dtype=H.dtype, device=H.device).index_add(
-        0, f_idx, JfTJd).T
-    Hd = Hd + zF.index_add(0, f_idx, torch.sum(Jd * Jd, dim=-1))
-    bd = bd - zF.index_add(0, f_idx, torch.einsum("nr,nr->n", Jd, r))
+    Hpd = Hpd + JfTJd.reshape(F, K, -1).sum(dim=1).T
+    Hd = Hd + torch.sum(Jd * Jd, dim=-1).reshape(F, K).sum(dim=1)
+    bd = bd - torch.einsum("nr,nr->n", Jd, r).reshape(F, K).sum(dim=1)
     return H, b, Hpd, Hd, bd
 
 
-def build_system(state: WindowState, feats: FeatureStore, pre: StackedPreint,
-                 lidar: LidarConstraints, prior: MargPrior, cfg: BAConfig,
-                 cauchy_c=1.0) -> System:
+def window_system(state: WindowState, pre: StackedPreint, lidar: LidarConstraints,
+                  prior: MargPrior, cfg: BAConfig):
+    """(H, b, cost) of the factors on the window's frames alone: the
+    marginalization prior, IMU and LiDAR (replicated in the sharded BA,
+    which adds them on one rank)."""
     dtype, dev = state.p.dtype, state.p.device
-    F = feats.active.shape[0]
     g = torch.as_tensor(cfg.gravity, dtype=dtype, device=dev)
     H = torch.zeros((D, D), dtype=dtype, device=dev)
     b = torch.zeros((D,), dtype=dtype, device=dev)
@@ -269,20 +272,33 @@ def build_system(state: WindowState, feats: FeatureStore, pre: StackedPreint,
         r, J, ix = _lidar_blocks(state, lidar, dtype)
         H, b = scatter_quadratic(H, b, r, J, ix)
         cost = cost + torch.sum(r * r)
+    return H, b, cost
 
-    # projection + depth coupling
-    r, Jpse, Jd, ix, f_idx, rho_cost = _proj_blocks(state, feats, cfg, dtype, cauchy_c)
+
+def landmark_system(H, b, cost, state: WindowState, feats: FeatureStore, cfg: BAConfig,
+                    cauchy_c=1.0) -> System:
+    """Adds the projection factors of `feats` (all slots, or one rank's
+    block of them) and their depth couplings to (H, b, cost)."""
+    dtype, dev = state.p.dtype, state.p.device
+    F = feats.active.shape[0]
+    r, Jpse, Jd, ix, _, rho_cost = _proj_blocks(state, feats, cfg, dtype, cauchy_c)
     cost = cost + rho_cost
     Hpd = torch.zeros((D, F), dtype=dtype, device=dev)
     Hd = torch.zeros((F,), dtype=dtype, device=dev)
     bd = torch.zeros((F,), dtype=dtype, device=dev)
-    H, b, Hpd, Hd, bd = accumulate_proj_quadratic(H, b, Hpd, Hd, bd, r, Jpse, Jd, ix, f_idx)
+    H, b, Hpd, Hd, bd = accumulate_proj_quadratic(H, b, Hpd, Hd, bd, r, Jpse, Jd, ix)
     return System(H, b, Hpd, Hd, bd, cost)
 
 
-def total_cost(state, feats, pre, lidar, prior, cfg: BAConfig, cauchy_c=1.0):
-    """Cost only (for LM accept/reject): the residuals of build_system,
-    without their Jacobians."""
+def build_system(state: WindowState, feats: FeatureStore, pre: StackedPreint,
+                 lidar: LidarConstraints, prior: MargPrior, cfg: BAConfig,
+                 cauchy_c=1.0) -> System:
+    H, b, cost = window_system(state, pre, lidar, prior, cfg)
+    return landmark_system(H, b, cost, state, feats, cfg, cauchy_c)
+
+
+def window_cost(state, pre, lidar, prior, cfg: BAConfig):
+    """The cost of `window_system`'s factors, without their Jacobians."""
     dtype, dev = state.p.dtype, state.p.device
     g = torch.as_tensor(cfg.gravity, dtype=dtype, device=dev)
     r_p = factors.marg_prior_residual(prior, state)
@@ -292,8 +308,18 @@ def total_cost(state, feats, pre, lidar, prior, cfg: BAConfig, cauchy_c=1.0):
     if cfg.use_lidar:
         r, _, _ = _lidar_blocks(state, lidar, dtype, jac=False)
         cost = cost + torch.sum(r * r)
-    rho_cost = _proj_blocks(state, feats, cfg, dtype, cauchy_c, jac=False)[-1]
-    return cost + rho_cost
+    return cost
+
+
+def landmark_cost(state, feats, cfg: BAConfig, cauchy_c=1.0):
+    """The robust cost of the projection factors of `feats`."""
+    return _proj_blocks(state, feats, cfg, state.p.dtype, cauchy_c, jac=False)[-1]
+
+
+def total_cost(state, feats, pre, lidar, prior, cfg: BAConfig, cauchy_c=1.0):
+    """Cost only (for LM accept/reject): the residuals of build_system,
+    without their Jacobians."""
+    return window_cost(state, pre, lidar, prior, cfg) + landmark_cost(state, feats, cfg, cauchy_c)
 
 
 # ---------------------------------------------------------------------------
@@ -311,13 +337,27 @@ def schur_solve(sys: System, lam, cfg: BAConfig):
     solve of the slightly regularized system, selected with torch.where:
     torch.linalg.cholesky would raise there (the reference's factor holds
     NaN), so cholesky_ex and solve_ex report failure without a host read."""
-    dtype, dev = sys.H.dtype, sys.H.device
-    d_ok = sys.Hd > 1e-8
-    Hd_safe = torch.where(d_ok, sys.Hd, 1.0) + lam
+    HS, bS, inv_Hd = schur_terms(sys.Hpd, sys.Hd, sys.bd, lam)
+    delta = damped_solve(sys.H, sys.H - HS, sys.b - bS, lam)
+    delta_d = (sys.bd - sys.Hpd.T @ delta) * inv_Hd
+    return delta, delta_d
+
+
+def schur_terms(Hpd, Hd, bd, lam):
+    """The depth block's Schur correction to the pose system:
+    (Hpd Hd^-1 Hpd^T, Hpd Hd^-1 bd, Hd^-1) with the damped, guarded inverse
+    of the diagonal Hd. A sum over landmarks: the sharded BA reduces it."""
+    d_ok = Hd > 1e-8
+    Hd_safe = torch.where(d_ok, Hd, 1.0) + lam
     inv_Hd = torch.where(d_ok, 1.0 / Hd_safe, 0.0)
-    Hs = sys.H - (sys.Hpd * inv_Hd[None, :]) @ sys.Hpd.T
-    bs = sys.b - sys.Hpd @ (sys.bd * inv_Hd)
-    damp = lam * (torch.diagonal(sys.H) + 1.0)
+    return (Hpd * inv_Hd[None, :]) @ Hpd.T, Hpd @ (bd * inv_Hd), inv_Hd
+
+
+def damped_solve(H, Hs, bs, lam):
+    """The damped, preconditioned, refined solve of the pose system Hs
+    delta = bs (damping lam (diag(H) + 1))."""
+    dtype, dev = H.dtype, H.device
+    damp = lam * (torch.diagonal(H) + 1.0)
     Hs = Hs + torch.diag(damp)
     s = 1.0 / torch.sqrt(torch.abs(torch.diagonal(Hs)) + 1e-10)
     Hn = Hs * s[:, None] * s[None, :]
@@ -333,9 +373,7 @@ def schur_solve(sys: System, lam, cfg: BAConfig):
     eye = torch.eye(Hn.shape[0], dtype=dtype, device=dev)
     y_lu, _ = torch.linalg.solve_ex(torch.where(bad, Hn + eye * 1e-6, Hn), bn)
     y = torch.where(bad, y_lu, y)
-    delta = y * s
-    delta_d = (sys.bd - sys.Hpd.T @ delta) * inv_Hd
-    return delta, delta_d
+    return y * s
 
 
 def _apply(state: WindowState, feats: FeatureStore, delta, delta_d, cfg: BAConfig):
@@ -351,6 +389,17 @@ def optimize(state: WindowState, feats: FeatureStore, pre: StackedPreint,
     reference's `lax.scan` over the iterations is a host loop; nothing in it
     reads the device."""
     check_config(cfg)
+    return lm_loop(state, feats, cfg, lambda st, ft, c: build_system(st, ft, pre, lidar, prior,
+                                                                     cfg, c),
+                   lambda sys, lam: schur_solve(sys, lam, cfg),
+                   lambda st, ft, c: total_cost(st, ft, pre, lidar, prior, cfg, c))
+
+
+def lm_loop(state: WindowState, feats: FeatureStore, cfg: BAConfig, build, solve, cost_fn):
+    """The annealed LM loop of `optimize` over a system builder
+    build(state, feats, cauchy_c) -> System, a solver solve(System, lam) ->
+    (delta, delta_d) and cost_fn(state, feats, cauchy_c); the sharded BA
+    passes its reduced ones. Returns (state, feats, final_cost)."""
     anchor_p0 = state.p[0].clone()
     anchor_ypr0 = lie.R2ypr(lie.q2R(state.q[0]))
 
@@ -361,10 +410,10 @@ def optimize(state: WindowState, feats: FeatureStore, pre: StackedPreint,
     lam = torch.tensor(cfg.lm_init, dtype=dtype, device=dev)
     cost = None
     for cauchy_c in sched:
-        sys = build_system(state, feats, pre, lidar, prior, cfg, cauchy_c)
-        delta, delta_d = schur_solve(sys, lam, cfg)
+        sys = build(state, feats, cauchy_c)
+        delta, delta_d = solve(sys, lam)
         cand_st, cand_ft = _apply(state, feats, delta, delta_d, cfg)
-        new_cost = total_cost(cand_st, cand_ft, pre, lidar, prior, cfg, cauchy_c)
+        new_cost = cost_fn(cand_st, cand_ft, cauchy_c)
         accept = (new_cost < sys.cost) & torch.isfinite(new_cost)
         state = WindowState(*(torch.where(accept, b_, a) for a, b_ in zip(state, cand_st)))
         feats = feats._replace(inv_depth=torch.where(accept, cand_ft.inv_depth, feats.inv_depth))

@@ -305,7 +305,7 @@ def fused_full_step(window: WindowState, feats: FeatureStore, pre: StackedPreint
     prev_q = window.q[K - 1].clone()
     if run_ba:
         feats = triangulate(window, feats, cfg.tri_min_depth)
-        window, feats, cost = ba.optimize(window, feats, pre, lidar, prior, cfg.ba)
+        window, feats, cost = _optimize(window, feats, pre, lidar, prior, cfg.ba)
         failed = failure_detection(window, prev_p, prev_q)
     else:
         cost = torch.zeros((), dtype=dtype, device=dev)
@@ -321,6 +321,16 @@ def fused_full_step(window: WindowState, feats: FeatureStore, pre: StackedPreint
         key, window, feats, pre, lidar, prior, cfg)
     outputs = dict(p=out_p, q=out_q, v=out_v, cost=cost, failed=failed, is_key=key)
     return window, feats, pre, lidar, prior, outputs
+
+
+def _optimize(window, feats, pre, lidar, prior, cfg: ba.BAConfig):
+    """The BA of a frame: landmark-sharded over the active mesh with
+    cfg.sharded (estimator.py:343-350 of the reference), else ba.optimize."""
+    if cfg.sharded:
+        from vil_fusion_tpu_torch.parallel import sharded_ba
+
+        return sharded_ba.optimize_on_active_mesh(window, feats, pre, lidar, prior, cfg)
+    return ba.optimize(window, feats, pre, lidar, prior, cfg)
 
 
 def _marginalize_and_slide(is_key: bool, window, feats, pre, lidar, prior,
@@ -478,8 +488,8 @@ class VILEstimator:
             prev_p = self.window.p[K - 1].clone()
             prev_q = self.window.q[K - 1].clone()
             self.feats = triangulate(self.window, self.feats, cfg.tri_min_depth)
-            self.window, self.feats, cost = ba.optimize(self.window, self.feats, self.pre,
-                                                        self.lidar, self.prior, cfg.ba)
+            self.window, self.feats, cost = _optimize(self.window, self.feats, self.pre,
+                                                      self.lidar, self.prior, cfg.ba)
             self.last_cost = float(cost)
             mask = int(failure_detection(self.window, prev_p, prev_q))
             if mask:

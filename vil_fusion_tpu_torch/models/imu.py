@@ -11,9 +11,10 @@ segment, `residual` is `evaluate` (:160-186).
   * The 15x15 first-order bias Jacobian is propagated analytically (fast
     bias correction inside the BA iteration without re-integrating).
   * State tangent ordering [p, theta, v, ba, bg] = lie.O_P..O_BG.
-
-The log-depth `preintegrate_parallel` of the reference is not ported: it
-lost end to end against the sequential path (ROADMAP.md, "not to port").
+  * `preintegrate_parallel` (preintegrate(parallel=True)) is the same
+    midpoint math in log depth: batched per-step pieces and two associative
+    scans (`associative_scan`, jax.lax.associative_scan's combine order).
+    The sequential loop stays the default, as in the reference.
 """
 from __future__ import annotations
 
@@ -117,11 +118,9 @@ def preintegrate(acc, gyr, dt, ba, bg, noise: ImuNoise = ImuNoise(),
     step durations, entries may be 0 (identity padding); ba, bg: (3,)
     linearization-point biases. All steps run, padded or not, so the launch
     sequence depends on N only (IntegrationBase::propagate loop,
-    integration_base.h:147-158)."""
+    integration_base.h:147-158). parallel=True: `preintegrate_parallel`."""
     if parallel:
-        raise NotImplementedError(
-            "preintegrate(parallel=True): the log-depth preintegration is not ported "
-            "(ROADMAP.md, 'not to port unless a need is measured')")
+        return preintegrate_parallel(acc, gyr, dt, ba, bg, noise)
     dtype, dev = acc.dtype, acc.device
     Q18 = _noise_cov(noise, dtype, dev)
     carry = (torch.zeros(3, dtype=dtype, device=dev),
@@ -134,6 +133,111 @@ def preintegrate(acc, gyr, dt, ba, bg, noise: ImuNoise = ImuNoise(),
                                ba, bg, Q18)
     dp, dq, dv, jac, cov = carry
     return Preintegrated(dp, dq, dv, jac, cov, torch.sum(dt), ba, bg)
+
+
+def associative_scan(fn, elems):
+    """Inclusive scan of the tuple of tensors `elems` along dim 0 under the
+    associative fn(earlier, later), in log depth: the recursion of
+    jax.lax.associative_scan (pairs of neighbours combined, the half-length
+    scan recursed, the even places filled in), so that every prefix is
+    combined in the same order, and rounded the same way, as there."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = associative_scan(fn, fn(tuple(e[0:-1:2] for e in elems),
+                                  tuple(e[1::2] for e in elems)))
+    later = tuple(e[2::2] for e in elems)
+    even = fn(tuple(o[:-1] for o in odd), later) if n % 2 == 0 else fn(odd, later)
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        r = torch.empty_like(e)
+        r[0] = e[0]
+        r[2::2] = ev
+        r[1::2] = od
+        out.append(r)
+    return tuple(out)
+
+
+def preintegrate_parallel(acc, gyr, dt, ba, bg, noise: ImuNoise = ImuNoise()) -> Preintegrated:
+    """Log-depth preintegration (imu.py:174-276 of the reference): the SAME
+    midpoint math as _midpoint_step, restructured so that a segment is a
+    few dozen batched launches instead of a loop of N steps:
+
+      1. per-step rotation increments r_k = exp((w_mid_k - bg) dt_k), batched;
+      2. prefix rotations dq_k = r_0 x ... x r_k: an associative scan of
+         quaternion products (depth log2 N);
+      3. dv / dp as (ex/in)clusive cumulative sums of un_acc_k dt_k (the
+         midpoint update is affine given the rotations);
+      4. the (jacobian, covariance) pair composes associatively,
+         (J2, P2) o (J1, P1) = (J2 J1, J2 P1 J2^T + P2), over the per-step
+         leaves (F_k, V_k Q V_k^T) built batched: one associative scan of
+         15x15 products (depth log2 N).
+
+    dt == 0 padding steps contribute exact identities ((I, 0) leaves,
+    identity quaternions), as in the sequential path."""
+    dtype, dev = acc.dtype, acc.device
+    Q18 = _noise_cov(noise, dtype, dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    a0 = acc[:-1] - ba  # (N, 3)
+    a1 = acc[1:] - ba
+    un_gyr = 0.5 * (gyr[:-1] + gyr[1:]) - bg  # (N, 3)
+    N = a0.shape[0]
+
+    # 1-2: prefix rotations
+    r = lie.so3_exp(un_gyr * dt[:, None])  # (N, 4)
+    (dq_after,) = associative_scan(lambda x, y: (lie.qnormalize(lie.qmul(x[0], y[0])),), (r,))
+    q_id = torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=dev)
+    dq_before = torch.cat([q_id[None], dq_after[:-1]], dim=0)
+    R0 = lie.q2R(dq_before)  # (N, 3, 3)
+    R1 = lie.q2R(dq_after)
+
+    # 3: dv / dp cumulative sums
+    un_acc = 0.5 * (torch.einsum("nij,nj->ni", R0, a0) + torch.einsum("nij,nj->ni", R1, a1))
+    u = un_acc * dt[:, None]
+    dv_before = torch.cumsum(u, dim=0) - u  # exclusive prefix
+    dv = torch.sum(u, dim=0)
+    dp = torch.sum(dv_before * dt[:, None] + 0.5 * un_acc * dt[:, None] ** 2, dim=0)
+
+    # 4: batched F_k / V_k Q V_k^T leaves (the entries of _midpoint_step)
+    a0h = lie.skew(a0)  # (N, 3, 3)
+    a1h = lie.skew(a1)
+    wh = lie.skew(un_gyr)
+    dtc = dt[:, None, None]
+    dt2 = dtc * dtc
+    I_wdt = eye3[None] - wh * dtc
+    R0a0 = R0 @ a0h
+    R1a1 = R1 @ a1h
+    eyeN = eye3.expand(N, 3, 3)
+    Z = torch.zeros_like(eyeN)
+
+    F = torch.cat([
+        torch.cat([eyeN, -0.25 * R0a0 * dt2 - 0.25 * (R1a1 @ I_wdt) * dt2, eyeN * dtc,
+                   -0.25 * (R0 + R1) * dt2, 0.25 * R1a1 * dt2 * dtc], dim=2),
+        torch.cat([Z, I_wdt, Z, Z, -eyeN * dtc], dim=2),
+        torch.cat([Z, -0.5 * R0a0 * dtc - 0.5 * (R1a1 @ I_wdt) * dtc, eyeN,
+                   -0.5 * (R0 + R1) * dtc, 0.5 * R1a1 * dtc * dtc], dim=2),
+        torch.cat([Z, Z, Z, eyeN, Z], dim=2),
+        torch.cat([Z, Z, Z, Z, eyeN], dim=2),
+    ], dim=1)
+    V = torch.cat([
+        torch.cat([0.25 * R0 * dt2, -0.125 * R1a1 * dt2 * dtc, 0.25 * R1 * dt2,
+                   -0.125 * R1a1 * dt2 * dtc, Z, Z], dim=2),
+        torch.cat([Z, 0.5 * eyeN * dtc, Z, 0.5 * eyeN * dtc, Z, Z], dim=2),
+        torch.cat([0.5 * R0 * dtc, -0.25 * R1a1 * dt2, 0.5 * R1 * dtc, -0.25 * R1a1 * dt2,
+                   Z, Z], dim=2),
+        torch.cat([Z, Z, Z, Z, eyeN * dtc, Z], dim=2),
+        torch.cat([Z, Z, Z, Z, Z, eyeN * dtc], dim=2),
+    ], dim=1)
+    VQV = V @ Q18 @ V.transpose(-1, -2)
+
+    def comb(x, y):
+        Jx, Px = x
+        Jy, Py = y
+        return Jy @ Jx, Jy @ Px @ Jy.transpose(-1, -2) + Py
+
+    Jall, Pall = associative_scan(comb, (F, VQV))
+    return Preintegrated(dp, lie.qnormalize(dq_after[-1]), dv, Jall[-1], Pall[-1],
+                         torch.sum(dt), ba, bg)
 
 
 def bias_corrected_delta(pre: Preintegrated, ba, bg):

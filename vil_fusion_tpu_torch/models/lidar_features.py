@@ -64,22 +64,23 @@ def project_range_image(points, valid, cfg: LidarConfig):
     n_cells = cfg.n_scan * cfg.width
     cell = torch.where(valid, ring * cfg.width + col, torch.full_like(ring, n_cells))
 
+    # out of place throughout, so that torch.func.vmap batches the function
     img_r = torch.full((n_cells + 1,), 1e9, dtype=points.dtype, device=points.device)
-    img_r.scatter_reduce_(0, cell, torch.where(valid, r, torch.full_like(r, 1e9)),
-                          reduce="amin", include_self=True)
+    img_r = img_r.scatter_reduce(0, cell, torch.where(valid, r, torch.full_like(r, 1e9)),
+                                 reduce="amin", include_self=True)
     win = valid & (r <= img_r[cell] + 1e-3)
     # deterministic tie-break: lowest point index among the cell's winners
     n = points.shape[0]
     tag = torch.where(win, torch.arange(n, device=points.device),
                       torch.full((n,), _INT32_MAX, dtype=torch.int64, device=points.device))
     first = torch.full((n_cells + 1,), _INT32_MAX, dtype=torch.int64, device=points.device)
-    first.scatter_reduce_(0, cell, tag, reduce="amin", include_self=True)
+    first = first.scatter_reduce(0, cell, tag, reduce="amin", include_self=True)
     pick = win & (tag == first[cell])
     tgt = torch.where(pick, cell, torch.full_like(cell, n_cells))
     img_xyz = torch.zeros((n_cells + 1, 3), dtype=points.dtype, device=points.device)
-    img_xyz[tgt] = points
+    img_xyz = img_xyz.index_put((tgt,), points)
     img_valid = torch.zeros((n_cells + 1,), dtype=torch.bool, device=points.device)
-    img_valid[tgt] = pick
+    img_valid = img_valid.index_put((tgt,), pick)
     return (img_xyz[:-1].reshape(cfg.n_scan, cfg.width, 3),
             img_valid[:-1].reshape(cfg.n_scan, cfg.width))
 

@@ -332,3 +332,26 @@ def odometry_step(state: MapState, points, valid, cfg: OdomConfig = OdomConfig()
     )
     q_rel, p_rel = lie.pose_between((state.q, state.p), (q_new, p_new))
     return new_state, (q_new, p_new, q_rel, p_rel)
+
+
+def odometry_step_batched(states: MapState, points, valid, cfg: OdomConfig = OdomConfig(),
+                          frame_count: Optional[int] = None):
+    """S sequences in lockstep (lidar_odometry.py:413-424): every leaf of
+    `states` and the scans points (S, N, 3) / valid (S, N) carry a leading
+    sequence axis. torch.func.vmap over the single-sequence step, as the
+    reference vmaps its step; the kNN wrappers' vmap rules make each K1 / K2
+    call one launch over the S sequences (K3, the Morton keys: one call a
+    sequence). The sequences step together, so one host `frame_count`
+    serves them all (None reads sequence 0's on the device)."""
+    if frame_count is None:
+        frame_count = int(states.frame_count[0])
+    return torch.func.vmap(
+        lambda s, p, v: odometry_step(s, p, v, cfg, frame_count=frame_count))(
+            states, points, valid)
+
+
+def init_state_batched(cfg: OdomConfig, n_seq: int, dtype=torch.float32,
+                       device="cuda") -> MapState:
+    """`init_state` broadcast to n_seq sequences (lidar_odometry.py:426-428)."""
+    one = init_state(cfg, dtype, device)
+    return MapState(*(a.expand((n_seq,) + a.shape).clone() for a in one))

@@ -97,11 +97,11 @@ def marginalize_old(state: WindowState, feats: FeatureStore, pre: StackedPreint,
     # accumulate_proj_quadratic accumulates b -= J^T r while this function
     # carries g = +J^T r, so its b outputs are negated
     marg_feats = feats._replace(active=feats.active & (feats.start == 0))
-    r, Jpse, Jd, ixp, f_idx, _ = ba._proj_blocks(state, marg_feats, cfg, dtype, 1.0)
+    r, Jpse, Jd, ixp, _, _ = ba._proj_blocks(state, marg_feats, cfg, dtype, 1.0)
     zD = torch.zeros((D,), dtype=dtype, device=dev)
     zF = torch.zeros((F,), dtype=dtype, device=dev)
     Lam, bneg, Hpd, Hd, gd_neg = ba.accumulate_proj_quadratic(
-        Lam, zD, torch.zeros((D, F), dtype=dtype, device=dev), zF, zF, r, Jpse, Jd, ixp, f_idx)
+        Lam, zD, torch.zeros((D, F), dtype=dtype, device=dev), zF, zF, r, Jpse, Jd, ixp)
     g = g - bneg
     gd = -gd_neg
     inv_Hd = torch.where(Hd > _EIG_EPS, 1.0 / torch.clamp(Hd, min=_EIG_EPS), 0.0)

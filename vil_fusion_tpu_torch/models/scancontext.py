@@ -80,19 +80,24 @@ def detect_loop(db: ScanContextDB, query):
     over candidates, excluding the NUM_EXCLUDE_RECENT most recent keyframes;
     the caller applies the SC_DIST_THRES acceptance gate. Candidate ties
     (the +inf of unusable slots) go to the lower index, as lax.top_k does."""
-    C = db.desc.shape[0]
-    qk = ring_key(query)
-    idx = torch.arange(C, device=query.device)
-    usable = idx < db.count - NUM_EXCLUDE_RECENT
+    idx = torch.arange(db.desc.shape[0], device=query.device)
+    return best_candidate(db.desc, db.ring_key, idx < db.count - NUM_EXCLUDE_RECENT, query)
 
-    rk_d = torch.linalg.norm(db.ring_key - qk[None, :], dim=-1)
+
+def best_candidate(desc, ring_keys, usable, query):
+    """The search of `detect_loop` over the rows `desc` / `ring_keys` with
+    the mask `usable`: (row, distance, shift) of the best of the
+    NUM_CANDIDATES (or fewer, if there are fewer rows) nearest ring keys.
+    parallel/sharded_sc.py runs it on a rank's rows."""
+    qk = ring_key(query)
+    rk_d = torch.linalg.norm(ring_keys - qk[None, :], dim=-1)
     rk_d = torch.where(usable, rk_d, torch.full_like(rk_d, float("inf")))
     srt, order = torch.sort(rk_d, stable=True)
     cand = order[:NUM_CANDIDATES]
     cand_ok = torch.isfinite(srt[:NUM_CANDIDATES])
 
     shifts = torch.stack([torch.roll(query, s, dims=1) for s in range(N_SECTOR)])  # (S, R, W)
-    cand_desc = db.desc[cand]  # (Ncand, R, W)
+    cand_desc = desc[cand]  # (Ncand, R, W)
     num = torch.einsum("crw,srw->csw", cand_desc, shifts)
     cn = torch.linalg.norm(cand_desc, dim=1)  # (Ncand, W)
     qn = torch.linalg.norm(shifts, dim=1)  # (S, W)

@@ -21,8 +21,6 @@ build/kernels/ at first use and bound with ctypes: pointers from
 module builds nothing. There is no fallback: a CUDA tensor either runs the
 kernel or raises.
 """
-from __future__ import annotations
-
 import ctypes
 import functools
 import hashlib
@@ -35,7 +33,7 @@ import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,6 +45,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_K = 8
 _THREADS = 128  # threads per block and columns per group (csrc/knn.cu)
+
+# The custom ops below read their type annotations at definition: this module
+# has no `from __future__ import annotations`.
 
 # The split of the database over gridDim.y: blocks of 128 threads (one query
 # each) an SM that it aims at, for K1 / K2 (`plan`, tuned on an H100 with
@@ -105,7 +106,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             print(_ptxas_summary(res.stdout + res.stderr), flush=True)
     lib = ctypes.CDLL(str(out))
     fn = lib.vil_knn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 3
                    + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     fn = lib.vil_knn_sparse
@@ -167,15 +168,18 @@ def min_chunk_groups(k: int, grouped: bool) -> int:
     return (-(-k // 2) if grouped else 1) + 1
 
 
-def plan(nq: int, nd: int, k: int, sm_count: int, grouped: bool = False) -> Plan:
-    """The launch plan from the shape, the kernel and the card's SM count
-    alone.
+def plan(nq: int, nd: int, k: int, sm_count: int, grouped: bool = False,
+         batch: int = 1) -> Plan:
+    """The launch plan from the shape, the kernel, the card's SM count and
+    the number of sequences of a batched launch alone.
 
-    As many chunks as `_BLOCKS_PER_SM` blocks an SM ask for, none shorter
-    than `min_chunk_groups` and none empty. A problem too small to split
-    runs as one kernel that writes the result itself."""
+    As many chunks as `_BLOCKS_PER_SM` blocks an SM ask for, counting the
+    blocks of every sequence, none shorter than `min_chunk_groups` and none
+    empty. A problem too small to split runs as one kernel that writes the
+    result itself. The split changes no row (the top-k of a union is the
+    top-k of its parts', and K1's groups never straddle a chunk)."""
     groups = max(1, -(-nd // _THREADS))
-    want = min(-(-_BLOCKS_PER_SM * sm_count // max(1, -(-nq // _THREADS))),
+    want = min(-(-_BLOCKS_PER_SM * sm_count // (max(1, -(-nq // _THREADS)) * max(1, batch))),
                max(1, groups // min_chunk_groups(k, grouped)))
     chunk_groups = -(-groups // want)
     n_split = -(-groups // chunk_groups)
@@ -263,11 +267,13 @@ def launch_stage(name: str):
         _stage.name = prev
 
 
-def _count(fn, shape, diff: bool = False):
-    """One launch of wrapper `fn` at `shape` (Nq, Nd, k) or (n,)."""
+def _count(fn, shape, diff: bool = False, batched: bool = False):
+    """One launch of wrapper `fn` at `shape` (Nq, Nd, k), (S, Nq, Nd, k)
+    for a batched launch over S sequences, or (n,)."""
     with _launch_lock:
         fn.launches += 1
         fn.launches_diff += diff
+        fn.launches_batched += batched
         fn.last_call = shape
         name = getattr(_stage, "name", None)
         if name is not None:
@@ -282,6 +288,7 @@ def reset_counts():
         for fn in (knn_grouped, knn_exact, knn_sparse, morton_keys):
             fn.launches = 0
             fn.launches_diff = 0
+            fn.launches_batched = 0
             fn.last_call = None
             fn.launches_by_stage = {}
             fn.calls_by_stage = {}
@@ -307,56 +314,130 @@ def _check(queries, database, db_valid, k: int):
         raise ValueError(f"k={k} outside 1..{MAX_K}")
 
 
+def _batch_view(t, base_ndim: int, lead: tuple):
+    """(stride, one sequence, view) of one side of a batched call: its
+    leading dims flattened to one sequence a row, the elements between two
+    sequences and the first sequence (what the checks look at); or stride 0
+    and the side itself where it has none (shared by every sequence)."""
+    if t.ndim == base_ndim:
+        return 0, t, t
+    if tuple(t.shape[:-base_ndim]) != lead:
+        raise ValueError(f"batch dims {tuple(t.shape[:-base_ndim])}, expected {lead} or none")
+    flat = t.reshape((-1,) + tuple(t.shape[-base_ndim:]))
+    return flat[0].numel(), flat[0], flat
+
+
 def _launch(queries, database, db_valid, k: int, grouped: bool, form: str):
-    _check(queries, database, db_valid, k)
+    """One launch of K1 / K2 over every sequence of the call: queries
+    (*B, Nq, 3), database (*B, Nd, 3), db_valid (*B, Nd), a side without B
+    shared by all sequences (stride 0). Returns (*B, Nq, k)."""
+    lead = () if queries.ndim == 2 and database.ndim == 2 and db_valid.ndim == 1 else tuple(
+        torch.broadcast_shapes(queries.shape[:-2], database.shape[:-2], db_valid.shape[:-1]))
+    q_stride, q1, q = _batch_view(queries, 2, lead)
+    db_stride, db1, db = _batch_view(database, 2, lead)
+    v_stride, v1, v = _batch_view(db_valid, 1, lead)
+    _check(q1, db1, v1, k)
     knn_plain._check_form(form)
-    lib = build()
     dev = queries.device
-    nq, nd = queries.shape[0], database.shape[0]
-    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    batch = math.prod(lead)
+    nq, nd = queries.shape[-2], database.shape[-2]
+    out_d = torch.empty(lead + (nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty(lead + (nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_d, out_i
-    how = plan(nq, nd, k, _sm_count(dev), grouped)
+    lib = build()
+    how = plan(nq, nd, k, _sm_count(dev), grouped, batch)
     part_d = part_i = None  # the chunks' lists, where a merge reads them
     if how.merge:
-        part_d = torch.empty((nq, how.n_split, k), dtype=torch.float32, device=dev)
-        part_i = torch.empty((nq, how.n_split, k), dtype=torch.int32, device=dev)
+        part_d = torch.empty((batch, nq, how.n_split, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((batch, nq, how.n_split, k), dtype=torch.int32, device=dev)
     with _launch_lock, torch.cuda.device(dev):
         err = lib.vil_knn_launch(
-            queries.data_ptr(), database.data_ptr(), db_valid.data_ptr(), nq, nd, k,
-            int(grouped), int(form == "diff"), how.chunk, how.n_split,
+            q.data_ptr(), db.data_ptr(), v.data_ptr(), nq, nd, k,
+            int(grouped), int(form == "diff"), how.chunk, how.n_split, batch,
+            q_stride, db_stride, v_stride,
             part_d.data_ptr() if how.merge else None,
             part_i.data_ptr() if how.merge else None,
             out_d.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vil_knn_launch failed with cudaError {err} "
-                           f"(nq={nq}, nd={nd}, k={k}, grouped={grouped}, form={form}, "
-                           f"plan={tuple(how)})")
+                           f"(batch={batch}, nq={nq}, nd={nd}, k={k}, grouped={grouped}, "
+                           f"form={form}, plan={tuple(how)})")
     return out_d, out_i
+
+
+def _to_front(t, dim, size: int, base_ndim: int):
+    """A vmap rule's argument with the vmapped dim first; an argument not
+    vmapped at this level stays shared (no leading dims) or is expanded to
+    `size` (leading dims of an outer level)."""
+    if dim is not None:
+        return t.movedim(dim, 0)
+    if t.ndim == base_ndim:
+        return t
+    return t.unsqueeze(0).expand((size,) + tuple(t.shape))
+
+
+def _in_transform() -> bool:
+    """Inside torch.func.vmap (or another torch.func transform): a wrapper
+    goes through its custom op, whose vmap rule batches it. Outside, it
+    calls the implementation directly: the custom op's dispatch costs more
+    host time than a small launch takes on the card."""
+    return torch._C._are_functorch_transforms_active()
+
+
+def _knn_dense_impl(queries, database, db_valid, k, grouped, form, tile):
+    """K1 (`grouped`) or K2 over leading batch dims: the CUDA kernels' one
+    launch for every sequence on CUDA tensors (counted once), the plain
+    batched versions on CPU tensors."""
+    if queries.device.type == "cpu":
+        if grouped:
+            return knn_grouped_plain(queries, database, db_valid, k=k, form=form)
+        return knn_exact_plain(queries, database, db_valid, k=k, tile=tile, form=form)
+    out = _launch(queries.contiguous(), database.contiguous(), db_valid.contiguous(), k,
+                  grouped, form)
+    shape = (queries.shape[-2], database.shape[-2], k)
+    lead = out[0].shape[:-2]
+    _count(knn_grouped if grouped else knn_exact,
+           (math.prod(lead),) + shape if lead else shape, form == "diff", bool(lead))
+    return out
+
+
+@torch.library.custom_op("vil_fusion_torch::knn_dense", mutates_args=())
+def _knn_dense(queries: torch.Tensor, database: torch.Tensor, db_valid: torch.Tensor, k: int,
+               grouped: bool, form: str, tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_knn_dense_impl` as an operator that torch.func.vmap batches with
+    one call (the rule below): on the card one launch for the sequences."""
+    return _knn_dense_impl(queries, database, db_valid, k, grouped, form, tile)
+
+
+def _dense(*args):
+    return _knn_dense(*args) if _in_transform() else _knn_dense_impl(*args)
+
+
+@_knn_dense.register_vmap
+def _knn_dense_vmap(info, in_dims, queries, database, db_valid, k, grouped, form, tile):
+    n = info.batch_size
+    out = _knn_dense(_to_front(queries, in_dims[0], n, 2), _to_front(database, in_dims[1], n, 2),
+                     _to_front(db_valid, in_dims[2], n, 1), k, grouped, form, tile)
+    return out, (0, 0)
 
 
 def knn_grouped(queries, database, db_valid, k: int = 5, form: str = "expanded"):
     """K1: grouped approximate kNN (semantics of ops/knn.py:knn_grouped).
-    CUDA tensors launch csrc/knn.cu; CPU tensors take the plain version."""
-    if queries.device.type == "cpu":
-        return knn_grouped_plain(queries, database, db_valid, k=k, form=form)
-    out = _launch(queries, database, db_valid, k, grouped=True, form=form)
-    _count(knn_grouped, (queries.shape[0], database.shape[0], k), form == "diff")
-    return out
+    CUDA tensors launch csrc/knn.cu; CPU tensors take the plain version.
+    Leading batch dims (queries (*B, Nq, 3), database (*B, Nd, 3), db_valid
+    (*B, Nd), a side without them shared) and torch.func.vmap are one
+    launch over the sequences."""
+    return _dense(queries, database, db_valid, k, True, form, 0)
 
 
 def knn_exact(queries, database, db_valid, k: int = 5, tile: int = 2048,
               form: str = "expanded"):
     """K2: exact kNN, ties to the lower index. CUDA tensors launch
     csrc/knn.cu (`tile` is the plain version's scan tile); CPU tensors take
-    the plain version."""
-    if queries.device.type == "cpu":
-        return knn_exact_plain(queries, database, db_valid, k=k, tile=tile, form=form)
-    out = _launch(queries, database, db_valid, k, grouped=False, form=form)
-    _count(knn_exact, (queries.shape[0], database.shape[0], k), form == "diff")
-    return out
+    the plain version. Batched as `knn_grouped`."""
+    return _dense(queries, database, db_valid, k, False, form, tile)
 
 
 def check_cell(cell: float):
@@ -367,14 +448,41 @@ def check_cell(cell: float):
         raise ValueError(f"on CUDA the Morton cell must be a power of two, got {cell}")
 
 
+def _loop_vmap(op):
+    """A vmap rule for `op` that calls it once for each sequence and stacks
+    the results: K3 and the Morton keys have no batched launch yet."""
+    def rule(info, in_dims, *args):
+        outs = [op(*(a if d is None else a.select(d, s) for a, d in zip(args, in_dims)))
+                for s in range(info.batch_size)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+        return torch.stack(outs), 0
+    op.register_vmap(rule)
+    return op
+
+
+def _morton_keys_impl(pts, valid, cell: float):
+    if pts.device.type == "cpu":
+        return morton_keys_plain(pts, valid, cell)
+    return _morton_keys_cuda(pts, valid, cell)
+
+
+@torch.library.custom_op("vil_fusion_torch::morton_keys", mutates_args=())
+def _morton_keys(pts: torch.Tensor, valid: Optional[torch.Tensor], cell: float) -> torch.Tensor:
+    return _morton_keys_impl(pts, valid, cell)
+
+
 def morton_keys(pts, valid=None, cell: float = 2.0):
     """30-bit Morton keys (int32) of points (n, 3) in 1024 cells an axis of
     size `cell` from the least valid point minus 1e-3; 0x7FFFFFFF for an
     invalid point (semantics of ops/knn.py:morton_keys). CUDA tensors launch
     csrc/knn.cu's two key kernels and count one launch (`cell` a power of
-    two: `check_cell`); CPU tensors take the plain version."""
-    if pts.device.type == "cpu":
-        return morton_keys_plain(pts, valid, cell)
+    two: `check_cell`); CPU tensors take the plain version. Under
+    torch.func.vmap one call a sequence."""
+    return (_morton_keys if _in_transform() else _morton_keys_impl)(pts, valid, float(cell))
+
+
+def _morton_keys_cuda(pts, valid, cell: float):
     check_cell(cell)
     if not pts.is_cuda or pts.ndim != 2 or pts.shape[1] != 3:
         raise ValueError(f"pts must be an (n, 3) CUDA tensor, got {tuple(pts.shape)} on "
@@ -419,11 +527,33 @@ def knn_sparse(queries, database, db_valid, k: int = 5, radius: float = 3.0,
     the padding and the finishing step are in the kernels; a side that is
     not `*_sorted` is Morton-sorted first (`morton_sort`) and read through
     its permutation. q_tile must be 128 (one query a thread) and db_tile a
-    multiple of 128. CPU tensors take the plain version."""
+    multiple of 128. CPU tensors take the plain version. Under
+    torch.func.vmap one call a sequence."""
+    return (_knn_sparse if _in_transform() else _knn_sparse_impl)(
+        queries, database, db_valid, k, float(radius), q_tile, db_tile, float(cell), q_sorted,
+        db_sorted)
+
+
+@torch.library.custom_op("vil_fusion_torch::knn_sparse", mutates_args=())
+def _knn_sparse(queries: torch.Tensor, database: torch.Tensor, db_valid: torch.Tensor, k: int,
+                radius: float, q_tile: int, db_tile: int, cell: float, q_sorted: bool,
+                db_sorted: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _knn_sparse_impl(queries, database, db_valid, k, radius, q_tile, db_tile, cell,
+                            q_sorted, db_sorted)
+
+
+def _knn_sparse_impl(queries, database, db_valid, k, radius, q_tile, db_tile, cell, q_sorted,
+                     db_sorted):
     if queries.device.type == "cpu":
         return knn_sparse_plain(queries, database, db_valid, k=k, radius=radius,
                                 q_tile=q_tile, db_tile=db_tile, cell=cell,
                                 q_sorted=q_sorted, db_sorted=db_sorted)
+    return _knn_sparse_cuda(queries, database, db_valid, k, radius, q_tile, db_tile, cell,
+                            q_sorted, db_sorted)
+
+
+def _knn_sparse_cuda(queries, database, db_valid, k, radius, q_tile, db_tile, cell, q_sorted,
+                     db_sorted):
     _check(queries, database, db_valid, k)
     if q_tile != _THREADS or db_tile <= 0 or db_tile % _THREADS:
         raise ValueError(f"on CUDA q_tile must be {_THREADS} and db_tile a multiple "
@@ -472,7 +602,11 @@ def knn(queries, database, db_valid, k: int = 5, tile: int = 4096,
     return knn_exact(queries, database, db_valid, k=k, tile=min(tile, 2048), form=form)
 
 
+_loop_vmap(_morton_keys)
+_loop_vmap(_knn_sparse)
+
 # launches (every thread): `launches` in all, `launches_diff` of them with
-# form="diff", `last_call` the (Nq, Nd, k) of the latest, and per
-# launch_stage name the count and the shapes
+# form="diff", `launches_batched` of them over a sequence axis (one launch
+# for the batch), `last_call` the (Nq, Nd, k) (batched: (S, Nq, Nd, k)) of
+# the latest, and per launch_stage name the count and the shapes
 reset_counts()

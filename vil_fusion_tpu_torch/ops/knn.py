@@ -33,7 +33,7 @@ GROUP = 128  # columns per group of the grouped merge (the TPU's lane width)
 
 
 def _sqnorm(x):
-    return x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
+    return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
 
 
 def _check_form(form: str):
@@ -42,21 +42,29 @@ def _check_form(form: str):
 
 
 def _dist2(q, qn, d, dn, form: str = "expanded"):
-    """(Nq, T) squared distances; dn is +inf for invalid columns."""
+    """(..., Nq, T) squared distances of q (..., Nq, 3) to d (..., T, 3)
+    (leading dims broadcast); dn is +inf for invalid columns."""
     if form == "diff":
-        dx = q[:, 0:1] - d[None, :, 0]
-        dy = q[:, 1:2] - d[None, :, 1]
-        dz = q[:, 2:3] - d[None, :, 2]
+        dx = q[..., :, None, 0] - d[..., None, :, 0]
+        dy = q[..., :, None, 1] - d[..., None, :, 1]
+        dz = q[..., :, None, 2] - d[..., None, :, 2]
         dist = dx * dx + dy * dy + dz * dz
-        return torch.where(torch.isfinite(dn)[None, :], dist,
+        return torch.where(torch.isfinite(dn)[..., None, :], dist,
                            torch.full_like(dist, float("inf")))
-    dot = q[:, 0:1] * d[None, :, 0] + q[:, 1:2] * d[None, :, 1] + q[:, 2:3] * d[None, :, 2]
-    return torch.clamp((qn[:, None] + dn[None, :]) - 2.0 * dot, min=0.0)
+    dot = (q[..., :, None, 0] * d[..., None, :, 0] + q[..., :, None, 1] * d[..., None, :, 1]
+           + q[..., :, None, 2] * d[..., None, :, 2])
+    return torch.clamp((qn[..., :, None] + dn[..., None, :]) - 2.0 * dot, min=0.0)
 
 
 def _db_norms(database, db_valid):
     return torch.where(db_valid, _sqnorm(database),
-                       torch.full_like(database[:, 0], float("inf")))
+                       torch.full_like(database[..., 0], float("inf")))
+
+
+def _lead(queries, database):
+    """The batch shape of a call: queries (*B, Nq, 3) and database
+    (*B, Nd, 3), either side without B (shared by every sequence)."""
+    return torch.broadcast_shapes(queries.shape[:-2], database.shape[:-2])
 
 
 def _finish(best_d, best_i):
@@ -70,23 +78,28 @@ def knn(queries, database, db_valid, k: int = 5, tile: int = 2048,
     tiles of `tile` columns with a running top-k (the full (Nq, Nd) matrix
     is never built).
 
-    Returns (dists2 (Nq, k) float32, idx (Nq, k) int32)."""
+    Batched: queries (*B, Nq, 3), database (*B, Nd, 3) and db_valid
+    (*B, Nd), a side without B shared by every sequence; row s of the
+    result is bit for bit the unbatched call on sequence s.
+
+    Returns (dists2 (*B, Nq, k) float32, idx (*B, Nq, k) int32)."""
     _check_form(form)
     q = queries.float()
     db = database.float()
-    nq, nd = q.shape[0], db.shape[0]
+    lead = _lead(q, db)
+    nq, nd = q.shape[-2], db.shape[-2]
     qn = _sqnorm(q)
     dn_all = _db_norms(db, db_valid)
-    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32, device=q.device)
-    best_i = torch.zeros((nq, k), dtype=torch.int64, device=q.device)
+    best_d = torch.full(lead + (nq, k), float("inf"), dtype=torch.float32, device=q.device)
+    best_i = torch.zeros(lead + (nq, k), dtype=torch.int64, device=q.device)
     for s in range(0, nd, tile):
         e = min(s + tile, nd)
-        dist = _dist2(q, qn, db[s:e], dn_all[s:e], form)
-        idx = torch.arange(s, e, device=q.device).expand(nq, e - s)
-        cat_d = torch.cat([best_d, dist], dim=1)
-        cat_i = torch.cat([best_i, idx], dim=1)
-        best_d, arg = torch.topk(cat_d, k, dim=1, largest=False, sorted=True)
-        best_i = torch.gather(cat_i, 1, arg)
+        dist = _dist2(q, qn, db[..., s:e, :], dn_all[..., s:e], form)
+        idx = torch.arange(s, e, device=q.device).expand(lead + (nq, e - s))
+        cat_d = torch.cat([best_d, dist.expand(lead + (nq, e - s))], dim=-1)
+        cat_i = torch.cat([best_i, idx], dim=-1)
+        best_d, arg = torch.topk(cat_d, k, dim=-1, largest=False, sorted=True)
+        best_i = torch.gather(cat_i, -1, arg)
     return _finish(best_d, best_i)
 
 
@@ -100,32 +113,38 @@ def knn_grouped(queries, database, db_valid, k: int = 5, q_chunk: int = 1024,
     a query's k nearest fall in one group (bounded: the slot is filled by
     the next-best candidate of another group).
 
-    Queries are processed `q_chunk` rows at a time to bound memory."""
+    Queries are processed `q_chunk` rows at a time to bound memory.
+    Batched as `knn`: queries (*B, Nq, 3), database (*B, Nd, 3), db_valid
+    (*B, Nd), a side without B shared; rows equal the unbatched calls'."""
     _check_form(form)
     q = queries.float()
     db = database.float()
-    nq, nd = q.shape[0], db.shape[0]
+    lead = _lead(q, db)
+    nq, nd = q.shape[-2], db.shape[-2]
     dev = q.device
     pad = (-nd) % GROUP
     dn = _db_norms(db, db_valid)
     if pad:
-        db = torch.cat([db, torch.zeros((pad, 3), dtype=db.dtype, device=dev)])
-        dn = torch.cat([dn, torch.full((pad,), float("inf"), device=dev)])
-    n_groups = db.shape[0] // GROUP
+        db = torch.cat([db, torch.zeros(db.shape[:-2] + (pad, 3), dtype=db.dtype, device=dev)],
+                       dim=-2)
+        dn = torch.cat([dn, torch.full(dn.shape[:-1] + (pad,), float("inf"), device=dev)],
+                       dim=-1)
+    n_groups = db.shape[-2] // GROUP
     base = torch.arange(n_groups, device=dev)[:, None] * GROUP  # (G, 1)
     qn = _sqnorm(q)
     kk = min(k, 2 * n_groups)
-    out_d = torch.full((nq, k), float("inf"), dtype=torch.float32, device=dev)
-    out_i = torch.zeros((nq, k), dtype=torch.int64, device=dev)
+    out_d = torch.full(lead + (nq, k), float("inf"), dtype=torch.float32, device=dev)
+    out_i = torch.zeros(lead + (nq, k), dtype=torch.int64, device=dev)
     for s in range(0, nq, q_chunk):
         e = min(s + q_chunk, nq)
-        dist = _dist2(q[s:e], qn[s:e], db, dn, form).view(e - s, n_groups, GROUP)
-        g_d, g_a = torch.topk(dist, min(2, GROUP), dim=2, largest=False, sorted=True)
-        cand_d = g_d.reshape(e - s, -1)
-        cand_i = (g_a + base).reshape(e - s, -1)
-        top_d, arg = torch.topk(cand_d, kk, dim=1, largest=False, sorted=True)
-        out_d[s:e, :kk] = top_d
-        out_i[s:e, :kk] = torch.gather(cand_i, 1, arg)
+        dist = _dist2(q[..., s:e, :], qn[..., s:e], db, dn, form)
+        dist = dist.expand(lead + dist.shape[-2:]).reshape(lead + (e - s, n_groups, GROUP))
+        g_d, g_a = torch.topk(dist, min(2, GROUP), dim=-1, largest=False, sorted=True)
+        cand_d = g_d.reshape(lead + (e - s, -1))
+        cand_i = (g_a + base).reshape(lead + (e - s, -1))
+        top_d, arg = torch.topk(cand_d, kk, dim=-1, largest=False, sorted=True)
+        out_d[..., s:e, :kk] = top_d
+        out_i[..., s:e, :kk] = torch.gather(cand_i, -1, arg)
     return _finish(out_d, out_i)
 
 

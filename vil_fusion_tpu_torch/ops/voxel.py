@@ -20,11 +20,11 @@ def compact(points, valid, capacity: int):
     order = torch.argsort((~valid).to(torch.int32), stable=True)
     k = min(capacity, n)
     sel = order[:k]
-    out = torch.zeros((capacity,) + tuple(points.shape[1:]), dtype=points.dtype,
-                      device=points.device)
-    out[:k] = points[sel]
-    out_valid = torch.zeros((capacity,), dtype=torch.bool, device=points.device)
-    out_valid[:k] = valid[sel]
+    # out of place (a concatenation of the rows and zeros), so that
+    # torch.func.vmap batches the function
+    pad = capacity - k
+    out = torch.cat([points[sel], points.new_zeros((pad,) + tuple(points.shape[1:]))])
+    out_valid = torch.cat([valid[sel], valid.new_zeros((pad,))])
     return out, out_valid
 
 
@@ -93,16 +93,17 @@ def voxel_downsample_hash(points, valid, resolution: float, origin,
     h = hash_bucket(key, capacity)
     tag = torch.where(valid, torch.arange(n, device=points.device),
                       torch.full((n,), _INT32_MAX, dtype=torch.int64, device=points.device))
+    # out of place throughout, so that torch.func.vmap batches the function
     slot_min = torch.full((capacity,), _INT32_MAX, dtype=torch.int64, device=points.device)
-    slot_min.scatter_reduce_(0, h, tag, reduce="amin", include_self=True)
+    slot_min = slot_min.scatter_reduce(0, h, tag, reduce="amin", include_self=True)
     win = valid & (tag == slot_min[h])
     tgt = torch.where(win, h, torch.full_like(h, capacity))
     # winners are unique per slot; the losers' rows all land in the dropped
     # overflow slot `capacity`
     out = torch.zeros((capacity + 1, 3), dtype=points.dtype, device=points.device)
-    out[tgt] = points
+    out = out.index_put((tgt,), points)
     ov = torch.zeros((capacity + 1,), dtype=torch.bool, device=points.device)
-    ov[tgt] = win
+    ov = ov.index_put((tgt,), win)
     return out[:capacity], ov[:capacity]
 
 
