@@ -5,7 +5,8 @@
 
 Phases, any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
-  2. build: compiles csrc/knn.cu with nvcc for sm_90a into build/kernels/;
+  2. build: compiles csrc/knn.cu and csrc/eigh.cu with nvcc for sm_90a into
+     build/kernels/, the two nvcc processes side by side;
   3. kernels: every kernel against its plain PyTorch version on the card at
      the main paths' shapes, with CUDA-event timings of kernel and plain
      version and the least time the card could take (bound):
@@ -21,7 +22,11 @@ Phases, any failure exits non-zero:
      cloud, strictly against the plain sparse search and against the plain
      exact search inside the radius, with the share of blocks skipped; the
      dense/sparse crossover (K1, K2, K3 at the default and the 4x map
-     capacities) and hash kNN against K1;
+     capacities) and hash kNN against K1; the symmetric eigensolver
+     (csrc/eigh.cu, the marginalization's eigh) against torch.linalg.eigh
+     and float64 at the estimator's 15 and 157 on matrices like its own
+     (full rank, rank-deficient like a prior, repeated eigenvalues, column
+     scales over 11 decades), and the prior's J^T J and J^T r0 it gives;
   4. path "dense": VILFusionPipeline(mode="lidar") at KITTI HDL-64 scale
      (64 x 1800 = 115,200-point scans, 16,384 / 32,768-point maps, default
      global fusion), 5 warm-up + 40 timed scans at 10 Hz, then
@@ -40,24 +45,33 @@ Phases, any failure exits non-zero:
      frame (tracker, lidar odometry, extrinsic glue, depth association,
      estimator: IMU preintegration, feature ingest, triangulation, bundle
      adjustment, marginalization, slide) on the same rig with 200 Hz IMU,
-     oracle initial state, 14 warm-up + 5 timed frames: no restart, the
-     fused estimator step on every steady frame, K1 / K2 launched as the
-     odometry and the depth association plan them each frame, the end
-     error within its bound; then a cold start on tests/test_e2e_loop.py's
+     oracle initial state, 14 warm-up + 20 timed frames: no restart, the
+     fused estimator step on every steady frame, each one a replay of its
+     CUDA graph (the replay count equals the steady frames), K1 / K2
+     launched as the odometry and the depth association plan them each
+     frame, the eigensolver four times a steady frame, the end error within
+     its bound; every steady step's graph result bit for bit the eager
+     body's on the same inputs (both keyframe decisions among them), one
+     replay under torch.cuda.set_sync_debug_mode("error"), the step's host
+     launches counted by torch.profiler, the marginalization's own matrices
+     through the kernel and torch.linalg.eigh; then a cold start on
+     tests/test_e2e_loop.py's
      rig (240 x 320, 32 x 600 scans, LoopTrajectory, no visual loop) that
      must initialize within its frame cap and never restart;
   8. path "deferred": phase 7's frames at sync_depth=2 (the bench's
      deployment configuration, with scan_quant=0.0025): every steady frame
-     issued and completed two frames later, no restart, K1 / K2 a frame and
-     the end error as in phase 7; frames/s at sync_depth 0 and 2 and the
-     distance between the two trajectories are printed;
+     issued and completed two frames later, each steady frame a graph
+     replay, no restart, K1 / K2 a frame and the end error as in phase 7;
+     frames/s at sync_depth 0 and 2, the host's wait per completed frame
+     and the distance between the two trajectories are printed;
   9. path "loop": tests/test_e2e_loop.py's lap, 390 frames of the cold-start
      rig with the visual loop on its worker thread and sync_depth=2: that
      test's asserts (initialized, no restart, >= 380 outputs, a ScanContext
      and a visual loop, the ATE of the global fusion below the VIO's and
      0.5 m, the rebuilt loop path no worse than 1.05 x the VIO, the VIO error
-     down after the relocalization), no worker error, and K2 launched at
-     the densification shape (384 extra corners x the 19,200-point scan);
+     down after the relocalization), no worker error, K2 launched at
+     the densification shape (384 extra corners x the 19,200-point scan),
+     and every steady frame's estimator step a graph replay;
   10. path "mask": mode "mask" on tests/test_pipeline.py:263's sequence with
      a moving textured object and its mask: at most 2 tracked features in
      the object's core on any frame, no restart, error < 0.5 m;
@@ -70,7 +84,7 @@ Phases, any failure exits non-zero:
      vil_fusion_tpu_torch.tools.run_dataset (mode "lidar", the native ring
      bus): every frame out, TUM files and report.json written, nothing
      dropped, K1 on every frame after the first, end error within 0.25 m;
-     (c) vil_fusion_tpu_torch.tools.run_synthetic over 20 frames of the
+     (c) vil_fusion_tpu_torch.tools.run_synthetic over 30 frames of the
      KITTI-scale circuit from a cold start (visual loop, sync_depth=2,
      frames rendered by TorchRaycast in the ring bus's producer thread): no
      restart, no worker error, nothing dropped, K1 and K2 launched, the
@@ -86,7 +100,8 @@ Phases, any failure exits non-zero:
      batched step those of one sequence, aggregate frames/s; then 3 batched
      steps of the exact kNN (K2); (c) knn_sharded, detect_loop_sharded and
      optimize_sharded at world size 1 over NCCL against knn_exact,
-     detect_loop (2,048 slots) and ba.optimize on phase 7's final window;
+     detect_loop (2,048 slots) and ba.optimize on phase 7's window after
+     its first 19 frames;
      (d) the same three on 4 spawned ranks over gloo with CUDA tensors on
      the one card against (c); (e) preintegrate(parallel=True) against the
      sequential loop with host ms and device kernels of each.
@@ -145,17 +160,34 @@ DEPTH_ERR_BOUND_M = 0.15
 MIN_LIVE, MIN_TRACKED_MEAN, MIN_TRACKED = 100, 100, 50
 # path vil: warm-up covers the window's filling (the estimator's first fused
 # step is frame K - 1 = 10) and a few steady frames
-VIL_WARMUP, VIL_TIMED = 14, 5
+VIL_WARMUP, VIL_TIMED = 14, 20
+# phase 12's sharded BA takes phase 7's window after this many frames: the
+# window it has been held on since it was written (19 frames). On the
+# window after all 34 frames the 4 gloo ranks' LM lands 1.29e-3 from the
+# one-rank LM's cost (892.60 against 893.76), beyond tests/test_parallel.py's
+# rtol 1e-3: its accept / reject path flips on that weaker window (PERF.md,
+# section 7)
+SHARDED_WINDOW_FRAMES = 19
 IMU_RATE = 200.0
 # end-position bound of the vil path: VIL_REF_END_ERR_M is the JAX
-# package's own end error over the same 19 frames on the CPU
-# (tools/jax_cpu_reference.py --mode vil --frames 19, 32 x 900 scans and
+# package's own end error over the same 34 frames on the CPU
+# (tools/jax_cpu_reference.py --mode vil --frames 34, 32 x 900 scans and
 # 4,096 / 8,192-point maps: 0.0402 m before the first bundle adjustment at
-# frame 10, 0.4441 m after it, then growing; 1.7700 m after 24 frames,
-# 1.9139 m after 34); the bound is about twice it, as for the other paths
-# (PERF.md)
-VIL_REF_END_ERR_M = 1.4363
-VIL_END_ERR_BOUND_M = 3.0
+# frame 10, 0.4441 m after it, then growing; 1.4363 m after 19 frames); the
+# bound is about twice it, as for the other paths (PERF.md)
+VIL_REF_END_ERR_M = 1.9139
+VIL_END_ERR_BOUND_M = 4.0
+# the symmetric eigensolver (csrc/eigh.cu) against torch.linalg.eigh and
+# float64: both are backward-stable float32 solvers, each within ~5 n ulps
+# of max|S| of the exact eigenvalues (cuSOLVER's syevd lands 4.3e-5 to
+# 5.7e-5 from float64 at n = 157-172 on an H100, PERF.md), so the two
+# within 1e-4 of max|S| of each other, the kernel within 2e-5 of float64;
+# its V diag(S) V^T within 2e-5 of max|A| and V^T V within 2e-5 of I
+# (~1,500 rotations a column, each an ulp of random error); the prior it
+# gives to test_torch_marginalization.py's tolerances (J^T J within 1e-4 of
+# the largest entry of the quadratic, J^T r0 within 1e-3)
+EIGH_SIZES = (15, 157)
+EIGH_TOL_PLAIN, EIGH_TOL_F64, EIGH_TOL_RECON, EIGH_TOL_ORTH = 1e-4, 2e-5, 2e-5, 2e-5
 # the cold start: frame cap, frames run after initializing, and the JAX
 # package's initialization frame on the CPU
 # (tools/jax_cpu_reference.py --mode coldstart --frames 80)
@@ -181,7 +213,7 @@ MASK_REF = dict(max_err_m=0.1018)
 CIRCUIT = dict(radius=100.0, pillar_step_deg=4.0, box_step_deg=6.0)
 CIRCUIT_FRAME = 5
 REPLAY_IMAGES = 15
-SYNTH_FRAMES = 20
+SYNTH_FRAMES = 30
 SYNTH_BOUND_M = 0.25  # fusion keyframes' ATE and lidar end error of 11c
 # main-path shapes: scan geometry, odometry map capacities, ICP submap
 SCAN = dict(n_scan=64, width=1800, fov_up_deg=2.0, fov_down_deg=-24.8, max_range=80.0)
@@ -1041,21 +1073,141 @@ def _kernel_phase(frames, dev):
     return records
 
 
+def _eigh_cases(n: int, seed: int):
+    """Symmetric float32 test matrices of size n like the marginalization's:
+    full rank, rank-deficient (a prior's quadratic: rank n/2), repeated
+    eigenvalues, and column scales over 11 decades (the FOCAL^2-scaled
+    vision blocks beside the bias blocks)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n + 20, n))
+    B = rng.normal(size=(n // 2, n))
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    d = np.repeat(rng.uniform(1.0, 10.0, (n + 2) // 3), 3)[:n]
+    C = rng.normal(size=(n, n)) * np.exp(rng.uniform(-8.0, 18.0, n))
+    return {"full rank": A.T @ A, "rank n/2": B.T @ B, "repeated": (Q * d) @ Q.T,
+            "wide range": C.T @ C / n}
+
+
+def _eigh_check(label, A, S, V, S_plain):
+    """Hold one eigendecomposition (S, V) of A (CUDA tensors) against the
+    plain version's eigenvalues and float64 (module constants EIGH_TOL_*).
+    Returns the largest eigenvalue error against the plain version."""
+    import numpy as np
+    import torch
+
+    n = A.shape[-1]
+    S64 = np.linalg.eigvalsh(A.double().cpu().numpy())
+    s_max = np.abs(S64).max()
+    e_plain = (S - S_plain).abs().max().item()
+    e_64 = np.abs(S.double().cpu().numpy() - S64).max() / s_max
+    e_plain_64 = np.abs(S_plain.double().cpu().numpy() - S64).max() / s_max
+    recon = ((V * S[None, :]) @ V.T - A).abs().max().item() / A.abs().max().item()
+    orth = (V.T @ V - torch.eye(n, device=A.device)).abs().max().item()
+    print(f"  eigh {label}: eigenvalues against torch.linalg.eigh {e_plain / s_max:.3e}, against "
+          f"float64 {e_64:.3e} (torch.linalg.eigh {e_plain_64:.3e}) of max|S|; V diag(S) V^T "
+          f"{recon:.3e} of max|A|; V^T V - I {orth:.3e}", flush=True)
+    if not (e_plain <= EIGH_TOL_PLAIN * s_max and e_64 <= EIGH_TOL_F64
+            and recon <= EIGH_TOL_RECON and orth <= EIGH_TOL_ORTH and torch.isfinite(V).all()):
+        raise AssertionError(f"eigh {label}: outside the tolerances")
+    if not bool((S[1:] >= S[:-1]).all()):
+        raise AssertionError(f"eigh {label}: eigenvalues not ascending")
+    return e_plain
+
+
+def _eigh_phase(dev):
+    """Phase 3, the eigensolver: csrc/eigh.cu against torch.linalg.eigh (its
+    plain version, and the one PyTorch call of the same function) and
+    float64 at the estimator's sizes on `_eigh_cases`, the batched launch,
+    and marginalization._quadratic_to_factor on the card against
+    test_torch_marginalization.py's invariants; CUDA-event times of kernel
+    and torch.linalg.eigh beside the bound max(9 n^3 float32 operations,
+    2 n^2 x 4 B). Returns the kernels line's record."""
+    import numpy as np
+    import torch
+
+    from vil_fusion_tpu_torch.models import marginalization as marg
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda as ec
+
+    shapes, err, sweeps = {}, 0.0, {}
+    for n in EIGH_SIZES:
+        for name, M in _eigh_cases(n, n).items():
+            A = torch.tensor(M, dtype=torch.float32, device=dev)
+            sw = torch.zeros(1, dtype=torch.int32, device=dev)
+            S, V = ec.eigh(A, sweeps=sw)
+            S_plain, _ = ec.eigh_plain(A)
+            torch.cuda.synchronize()
+            err = max(err, _eigh_check(f"{n} x {n} {name}", A, S, V, S_plain))
+            sweeps[f"{n} {name}"] = int(sw.item())
+        # a batch of the four in one launch: each matrix as alone, bit for bit
+        batch = torch.stack([torch.tensor(M, dtype=torch.float32, device=dev)
+                             for M in _eigh_cases(n, n).values()])
+        Sb, Vb = ec.eigh(batch)
+        for b in range(batch.shape[0]):
+            S1, V1 = ec.eigh(batch[b])
+            if not (torch.equal(Sb[b], S1) and torch.equal(Vb[b], V1)):
+                raise AssertionError(f"eigh {n}: batched launch differs from a single one")
+        A = torch.tensor(_eigh_cases(n, n)["rank n/2"], dtype=torch.float32, device=dev)
+        ms = _time_ms(lambda: ec.eigh(A))
+        plain_ms = _time_ms(lambda: ec.eigh_plain(A))
+        t_ops = 9 * n ** 3 / PEAK_FP32_FLOPS * 1e3
+        t_bytes = 2 * n * n * 4 / PEAK_BYTES_PER_S * 1e3
+        bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        shapes[str(n)] = dict(shape=f"{n}x{n}", ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                              bound_by=bound[1], library_ms=plain_ms)
+        print(f"  eigh {n} x {n}: kernel {ms:.4f} ms, torch.linalg.eigh {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.7f} ms by {bound[1]} (CUDA-event medians)", flush=True)
+    print(f"  eigh sweeps: {sweeps}", flush=True)
+    # the prior's factorization through the kernel (test_torch_marginalization.py's
+    # test_quadratic_to_factor_invariants: rank 30 of 40; and a prior-sized one)
+    rng = np.random.default_rng(0)
+    for m, r in ((40, 30), (157, 100)):
+        X = rng.normal(size=(r, m)).astype(np.float32)
+        Lam = X.T @ X
+        g = Lam @ rng.normal(size=m).astype(np.float32)
+        J, r0 = marg._quadratic_to_factor(torch.from_numpy(Lam).to(dev),
+                                          torch.from_numpy(g).to(dev))
+        J, r0 = J.double().cpu().numpy(), r0.double().cpu().numpy()
+        e_jj = np.abs(J.T @ J - Lam).max() / np.abs(Lam).max()
+        e_jr = np.abs(J.T @ r0 - g).max() / np.abs(g).max()
+        print(f"  eigh prior {m} x {m} rank {r}: J^T J {e_jj:.3e} of max|Lam|, J^T r0 "
+              f"{e_jr:.3e} of max|g|", flush=True)
+        if not (e_jj <= 1e-4 and e_jr <= 1e-3):
+            raise AssertionError(f"eigh prior {m}: J^T J / J^T r0 outside 1e-4 / 1e-3")
+    main = shapes[str(EIGH_SIZES[-1])]
+    return dict(name="eigh sym_eigh", route="cuda", source="vil_fusion_tpu_torch/csrc/eigh.cu",
+                replaces="vil_fusion_tpu/models/marginalization.py:35 (XLA eigh, also :48; "
+                         "not a Pallas kernel)",
+                max_abs_err=err, shape=main["shape"], ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], launches_per_call=1, shapes=shapes,
+                sweeps=sweeps)
+
+
 def _counts(kc):
-    """Launch counts of the six kernels since the last _reset (K1 and K2:
+    """Launch counts of the seven kernels since the last _reset (K1 and K2:
     unbatched launches of the expanded form; no path launches a batched
     call in the difference form)."""
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+
     return {"K1": kc.knn_grouped.launches - kc.knn_grouped.launches_diff
             - kc.knn_grouped.launches_batched,
             "K2": kc.knn_exact.launches - kc.knn_exact.launches_diff
             - kc.knn_exact.launches_batched,
             "K3": kc.knn_sparse.launches,
             "K1 diff": kc.knn_grouped.launches_diff, "K2 diff": kc.knn_exact.launches_diff,
-            "Morton keys": kc.morton_keys.launches}
+            "Morton keys": kc.morton_keys.launches, "eigh": eigh_cuda.eigh.launches}
 
 
 def _reset(kc):
+    """Every kernel's launch count and the graphs' replay counts to 0."""
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+    from vil_fusion_tpu_torch.utils import graphs
+
     kc.reset_counts()
+    eigh_cuda.reset_counts()
+    graphs.reset_counts()
 
 
 def _on_card(states, dev):
@@ -1233,15 +1385,20 @@ def _vil_path(frames, images, dev, card, sync_depth=0):
     deployment configuration): VILFusionPipeline(mode="vil") over `frames` +
     `images` with 200 Hz IMU from the oracle initial state. With
     sync_depth > 0 every steady frame must be issued (_issue_frame) and
-    completed (_complete_frame) sync_depth frames later. Returns (launch
-    counts of the run, timed frames/s, the per-frame positions)."""
+    completed (_complete_frame) sync_depth frames later. Every steady frame
+    must replay the estimator's graph; at sync_depth 0 every steady step is
+    recorded and checked after the run (`_graph_checks`). Returns (launch
+    counts of the run, timed frames/s, the per-frame positions, the
+    estimator state after SHARDED_WINDOW_FRAMES frames)."""
     import numpy as np
     import torch
 
+    from vil_fusion_tpu_torch.models import estimator as est_mod
     from vil_fusion_tpu_torch.models import window
     from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
     from vil_fusion_tpu_torch.runtime import sim
     from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+    from vil_fusion_tpu_torch.utils import graphs
     from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
 
     name = "vil" if sync_depth == 0 else "deferred"
@@ -1265,41 +1422,275 @@ def _vil_path(frames, images, dev, card, sync_depth=0):
         return complete(rec)
 
     pipe._issue_frame, pipe._complete_frame = issue_rec, complete_rec
+    steps = []  # the steady steps' (arguments, keywords, outputs), at sync_depth 0
+    step = est_mod.fused_full_step
+
+    def step_rec(*a, **kw):
+        out = step(*a, **kw)
+        if not sync_depth:
+            steps.append((a, kw, out))
+        return out
+
+    est_mod.fused_full_step = step_rec
     _reset(kc)
-    keys, per_frame = [], []
-    t0 = None
-    for i, (fr, img, imu) in enumerate(zip(frames, images, imus)):
-        if i == VIL_WARMUP:
-            torch.cuda.synchronize()
-            GLOBAL_TIMERS.reset()
-            t0 = time.perf_counter()
-        k1, k2 = _counts(kc)["K1"], _counts(kc)["K2"]
-        fused = pipe.estimator.fused_steps
-        if imu is not None:
-            pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
-        pipe.push_scan(fr[0], fr[1], fr[2])
-        pipe.push_image(fr[0], img)
-        c = _counts(kc)
-        per_frame.append((c["K1"] - k1, c["K2"] - k2))
-        # K1: the odometry's two association passes (edge, surf) a frame,
-        # both passes twice on the cold frames 1 and 2, none on frame 0;
-        # K2: one depth association a frame
-        want = (0 if i == 0 else 4 if i < 3 else 2, 1)
-        if per_frame[-1] != want:
-            raise AssertionError(f"{name} frame {i}: K1 / K2 launches {per_frame[-1]}, want "
-                                 f"{want}")
-        if pipe.restarts:
-            raise AssertionError(f"{name} frame {i}: restart {pipe.restart_log}")
-        if i >= window.K - 1:
-            if pipe.estimator.fused_steps != fused + 1:
-                raise AssertionError(f"{name} frame {i}: the steady frame skipped "
-                                     f"fused_full_step")
-            keys.append(pipe.estimator.last_is_key)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    n_captures = len(graphs.captures)
+    keys, per_frame, eigh_frame = [], [], []
+    t0 = window_state = None
+    try:
+        for i, (fr, img, imu) in enumerate(zip(frames, images, imus)):
+            if i == VIL_WARMUP:
+                torch.cuda.synchronize()
+                GLOBAL_TIMERS.reset()
+                t0 = time.perf_counter()
+            n_eigh = _counts(kc)["eigh"]
+            _vil_frame(pipe, i, fr, img, imu, name, kc, per_frame, keys)
+            if i == SHARDED_WINDOW_FRAMES - 1:
+                e = pipe.estimator  # its tensors are never written in place
+                window_state = (e.window, e.feats, e.pre, e.lidar, e.prior)
+            eigh_frame.append(_counts(kc)["eigh"] - n_eigh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        est_mod.fused_full_step = step
     pipe.finalize()
     counts = _counts(kc)
+    replays = graphs.replays.get("fused_full_step", 0)
+    new = graphs.captures[n_captures:]
     est = pipe.estimator
+    window_state = window_state or (est.window, est.feats, est.pre, est.lidar, est.prior)
+    n_steady = len(frames) - (window.K - 1)
+    # the eigensolver: 4 launches a step (2 a marginalization path, both run),
+    # each replay and each eager warm-up call of a new capture
+    want_eigh = 4 * (replays + sum(c["warmup_calls"] for c in new))
+    print(f"  {name}: the estimator's graph replayed {replays} times for {n_steady} steady "
+          f"frames; captures in this run {new}; eigh launches {counts['eigh']} (want "
+          f"{want_eigh}), per frame {eigh_frame}", flush=True)
+    if replays != n_steady or est.fused_steps != n_steady or counts["eigh"] != want_eigh:
+        raise AssertionError(f"{name}: {replays} graph replays, {est.fused_steps} fused steps, "
+                             f"{counts['eigh']} eigh launches for {n_steady} steady frames")
+    if steps:
+        _graph_checks(name, steps, est, card)
+    return _vil_report(name, pipe, frames, issued, completed, keys, per_frame, counts, dt,
+                       sync_depth, card, dev) + (window_state,)
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [y for v in x for y in _leaves(v)]
+    if isinstance(x, dict):
+        return [y for k in sorted(x) for y in _leaves(x[k])]
+    return [x]
+
+
+# launch, copy and wait calls of the CUDA runtime as torch.profiler names them
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
+_WAIT_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def _graph_checks(name, steps, est, card):
+    """Phase 7: every recorded steady step's graph result against the eager
+    body (`_fused_full_step_body`) on the same inputs, bit for bit, both
+    keyframe decisions among them; one replay's host time, device time and
+    host launches (torch.profiler) beside the eager body's; one replay under
+    torch.cuda.set_sync_debug_mode("error"); each marginalization path's
+    device time alone (a graph each: the device select's cost); the final window's two
+    marginalizations: every matrix they hand the eigensolver through the
+    kernel against torch.linalg.eigh and float64 (`_eigh_check`), and each
+    prior's factorization against its quadratic: J^T J within 1e-4 of the
+    largest entry of Lam and J^T r0 within 1e-3 of g's
+    (test_quadratic_to_factor_invariants), or within twice the plain
+    version's distance where that is larger (on a real window g is not in
+    the numerical range of Lam: the eigenvalues at float32's noise floor
+    decide what of g survives, in torch.linalg.eigh too); the priors against the same
+    marginalizations in float64 on the CPU are printed, not gated (float32
+    lands up to 2.4e-2 from them whatever the eigensolver: the Schur
+    elimination before it, test_torch_marginalization.py)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vil_fusion_tpu_torch.models import estimator as est_mod
+    from vil_fusion_tpu_torch.models import marginalization as marg
+    from vil_fusion_tpu_torch.utils import graphs
+
+    keys = []
+    t0 = time.perf_counter()
+    for n, (a, kw, out) in enumerate(steps):
+        body = est_mod._fused_full_step_body(*a[:17], run_ba=a[17], cfg=a[18])
+        bad = [i for i, (x, y) in enumerate(zip(_leaves(out), _leaves(body)))
+               if not torch.equal(x, y)]
+        if bad:
+            raise AssertionError(f"{name}: steady step {n}: the graph's outputs {bad} differ "
+                                 f"from the eager body's")
+        keys.append(bool(out[5]["is_key"]))
+    print(f"  {name}: graph = eager body bit for bit on all {len(steps)} steady steps "
+          f"(keyframes {sum(keys)}, non-keyframes {len(keys) - sum(keys)}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if len(set(keys)) < 2:
+        raise AssertionError(f"{name}: the steady steps hold one keyframe decision: {keys}")
+
+    a, kw, _ = steps[-1]
+    times = {}
+    for kind, fn, reps in (("graph", lambda: est_mod.fused_full_step(*a, **kw), 5),
+                           ("eager", lambda: est_mod._fused_full_step_body(
+                               *a[:17], run_ba=a[17], cfg=a[18]), 2)):
+        rows = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t1 = time.perf_counter()
+            ev[0].record()
+            fn()
+            ev[1].record()
+            t2 = time.perf_counter()
+            ev[1].synchronize()
+            t3 = time.perf_counter()
+            rows.append((1e3 * (t2 - t1), 1e3 * (t3 - t1), ev[0].elapsed_time(ev[1])))
+        times[kind] = [sorted(col)[len(col) // 2] for col in zip(*rows)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("steady_step"):
+            est_mod.fused_full_step(*a, **kw)
+        torch.cuda.synchronize()
+
+    def inside(ev, keys):
+        return sum((c.name in keys) + inside(c, keys) for c in ev.cpu_children)
+
+    rng = [e for e in prof.events() if e.name == "steady_step"]
+    launches = {k: sum(inside(e, (k,)) for e in rng) for k in _LAUNCH_KEYS + ("cudaMemcpyAsync",)}
+    launches = {k: v for k, v in launches.items() if v}
+    print(f"  {name}: one steady step (medians), host ms to enqueue / until done / CUDA events: "
+          f"graph " + " / ".join(f"{x:.2f}" for x in times["graph"]) + ", eager body "
+          + " / ".join(f"{x:.2f}" for x in times["eager"]) + f" [{card}]", flush=True)
+    print(f"  {name}: the step's host launches (torch.profiler, inside the call): {launches}, in "
+          f"all {sum(launches.values())}; host waits "
+          f"{sum(inside(e, _WAIT_KEYS + ('aten::item',)) for e in rng)}", flush=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        est_mod.fused_full_step(*a, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"  {name}: a replay under torch.cuda.set_sync_debug_mode('error'): no sync",
+          flush=True)
+
+    # what the device select costs: each marginalization path alone as a graph
+    # of its own on the final window (CUDA-event medians, its input copies and
+    # output clones included)
+    st = (est.window, est.feats, est.pre, est.lidar, est.prior)
+    path_ms = {}
+    for key in (True, False):
+        path = functools.partial(est_mod._marginalize_and_slide, key, cfg=est.cfg)
+        path_ms[key] = _time_ms(lambda: graphs.step(f"marginalize_and_slide({key})", path, st,
+                                                    static=(est.cfg,)), reps=10)
+    print(f"  {name}: the marginalization paths alone (graphs, device ms): keyframe "
+          f"{path_ms[True]:.2f}, non-keyframe {path_ms[False]:.2f}; the device select runs both "
+          f"every frame [{card}]", flush=True)
+
+    state, cfg = (est.window, est.feats, est.pre, est.lidar, est.prior), est.cfg
+
+    def priors(st):
+        return (marg.marginalize_old(*st, cfg.ba), marg.marginalize_second_new(st[4], st[0]))
+
+    def f64(x):  # a (nested) NamedTuple on the CPU, floating fields in float64
+        return type(x)(*(f64(v) if isinstance(v, tuple) else
+                         (v.cpu().double() if v.is_floating_point() else v.cpu()) for v in x))
+
+    def invariants(J, r0):
+        J = J.double().cpu().numpy()
+        return J.T @ J, J.T @ r0.double().cpu().numpy()
+
+    # the matrices the two marginalizations hand the eigensolver (15 x 15
+    # Schur blocks, 157 x 157 quadratics) and the quadratics they factor
+    mats, quads = [], []
+    sym_eigh, to_factor = marg.sym_eigh, marg._quadratic_to_factor
+
+    def eigh_rec(A):
+        mats.append(A)
+        return sym_eigh(A)
+
+    def factor_rec(Lam, g):
+        quads.append((Lam, g))
+        return to_factor(Lam, g)
+
+    marg.sym_eigh, marg._quadratic_to_factor = eigh_rec, factor_rec
+    try:
+        kern = priors(state)
+    finally:
+        marg.sym_eigh, marg._quadratic_to_factor = sym_eigh, to_factor
+    for n, A in enumerate(mats):
+        S, V = sym_eigh(A)
+        _eigh_check(f"{name} window matrix {n} ({A.shape[0]} x {A.shape[0]})", A, S, V,
+                    torch.linalg.eigh(A)[0])
+    marg.sym_eigh = torch.linalg.eigh
+    try:
+        plain = priors(state)
+        ref = priors(tuple(f64(x) for x in state))
+        plain_factors = [to_factor(L, g) for L, g in quads]
+    finally:
+        marg.sym_eigh = sym_eigh
+    for n, ((Lam, g), kf, pf) in enumerate(zip(quads, [to_factor(L, g) for L, g in quads],
+                                              plain_factors)):
+        L = (0.5 * (Lam + Lam.T)).double().cpu().numpy()
+        gn = g.double().cpu().numpy()
+        e = {}
+        for k, (J, r0) in (("kernel", kf), ("torch.linalg.eigh", pf)):
+            jj, jr = invariants(J, r0)
+            e[k] = (np.abs(jj - L).max() / np.abs(L).max(),
+                    np.abs(jr - gn).max() / np.abs(gn).max())
+        print(f"  {name}: the window's quadratic {n} ({L.shape[0]} x {L.shape[0]}) factored, "
+              f"J^T J - Lam / J^T r0 - g of their largest entries: "
+              + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}" for k, v in e.items()), flush=True)
+        if not (e["kernel"][0] <= max(1e-4, 2 * e["torch.linalg.eigh"][0])
+                and e["kernel"][1] <= max(1e-3, 2 * e["torch.linalg.eigh"][1])):
+            raise AssertionError(f"{name}: the window's quadratic {n} through the kernel: {e}")
+    for what, pk, pp, pr in zip(("marginalize_old", "marginalize_second_new"), kern, plain, ref):
+        r = invariants(pr.J, pr.r0)
+        e = {k: [np.abs(u - v).max() / np.abs(v).max() for u, v in zip(invariants(x.J, x.r0), r)]
+             for k, x in (("kernel", pk), ("torch.linalg.eigh", pp))}
+        print(f"  {name}: the final window's {what} against float64 (not gated), J^T J / J^T r0 "
+              f"of their largest entries: " + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}"
+                                                         for k, v in e.items()), flush=True)
+
+
+def _vil_frame(pipe, i, fr, img, imu, name, kc, per_frame, keys):
+    """Frame i of `_vil_path`, with its per-frame gates: K1 / K2 launches as
+    planned, no restart, the fused step on a steady frame."""
+    from vil_fusion_tpu_torch.models import window
+
+    k1, k2 = _counts(kc)["K1"], _counts(kc)["K2"]
+    fused = pipe.estimator.fused_steps
+    if imu is not None:
+        pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+    pipe.push_scan(fr[0], fr[1], fr[2])
+    pipe.push_image(fr[0], img)
+    c = _counts(kc)
+    per_frame.append((c["K1"] - k1, c["K2"] - k2))
+    # K1: the odometry's two association passes (edge, surf) a frame,
+    # both passes twice on the cold frames 1 and 2, none on frame 0;
+    # K2: one depth association a frame
+    want = (0 if i == 0 else 4 if i < 3 else 2, 1)
+    if per_frame[-1] != want:
+        raise AssertionError(f"{name} frame {i}: K1 / K2 launches {per_frame[-1]}, want "
+                             f"{want}")
+    if pipe.restarts:
+        raise AssertionError(f"{name} frame {i}: restart {pipe.restart_log}")
+    if i >= window.K - 1:
+        if pipe.estimator.fused_steps != fused + 1:
+            raise AssertionError(f"{name} frame {i}: the steady frame skipped "
+                                 f"fused_full_step")
+        keys.append(pipe.estimator.last_is_key)  # a device tensor: read after the run
+
+
+def _vil_report(name, pipe, frames, issued, completed, keys, per_frame, counts, dt, sync_depth,
+                card, dev):
+    """The end of `_vil_path`: states on the card, every steady frame issued
+    and completed, finite outputs, the report and the end-error gate."""
+    import numpy as np
+
+    from vil_fusion_tpu_torch.models import window
+    from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
+
+    est = pipe.estimator
+    keys = [bool(k) for k in keys]
     _on_card({**{f"window.{k}": v for k, v in est.window._asdict().items()},
               **{f"feats.{k}": v for k, v in est.feats._asdict().items()},
               **{f"pre.{k}": v for k, v in est.pre._asdict().items()},
@@ -1322,7 +1713,7 @@ def _vil_path(frames, images, dev, card, sync_depth=0):
     print(f"  {name}: host ms per timed frame (GLOBAL_TIMERS mean / p50): " + ", ".join(
         f"{k} {stages[k]['mean_ms']:.2f} / {stages[k]['p50_ms']:.2f}"
         for k in ("tracker", "lidar_odometry", "depth_association", "estimator", "feed_uploads",
-                  "vil_fused_frame", "global_fusion") if k in stages), flush=True)
+                  "vil_fused_frame", "frame_wait", "global_fusion") if k in stages), flush=True)
     print(f"  {name}: fused steps {est.fused_steps} of {len(steady)} steady frames"
           + (f" (issued {len(issued)}, completed {len(completed)})" if sync_depth else "")
           + f", keyframes {sum(keys)}, non-keyframes {len(keys) - sum(keys)}, restarts "
@@ -1336,7 +1727,7 @@ def _vil_path(frames, images, dev, card, sync_depth=0):
     if not errs[-1] < VIL_END_ERR_BOUND_M:
         raise AssertionError(f"{name}: end-position error {errs[-1]:.4f} m >= "
                              f"{VIL_END_ERR_BOUND_M} m")
-    return counts, VIL_TIMED / dt, vio_p, (est.window, est.feats, est.pre, est.lidar, est.prior)
+    return counts, VIL_TIMED / dt, vio_p
 
 
 def _cold_start(dev, frame=None):
@@ -1402,6 +1793,7 @@ def _loop_path(dev, card, frame=None):
     from vil_fusion_tpu_torch.runtime import sim, tum
     from vil_fusion_tpu_torch.runtime.config import RigConfig
     from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+    from vil_fusion_tpu_torch.utils import graphs
     from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
 
     rig, odom, gf_kw, traj, scene = cold_start_rig(sim, RigConfig)
@@ -1422,6 +1814,7 @@ def _loop_path(dev, card, frame=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts(kc)
+    replays = graphs.replays.get("fused_full_step", 0)
     calls = kc.knn_exact.calls_by_stage.get("visual_loop", {})
     n_pts = 32 * 600
     counts["K2 densify"] = calls.get((pipe.visual_loop.cfg.extra_cap, n_pts, 3), 0)
@@ -1447,7 +1840,12 @@ def _loop_path(dev, card, frame=None):
     print("  loop: host ms per frame (GLOBAL_TIMERS mean / p50 / n): " + ", ".join(
         f"{k} {v['mean_ms']:.2f} / {v['p50_ms']:.2f} / {v['n']}" for k, v in stages.items()),
         flush=True)
+    print(f"  loop: the estimator's graph replayed {replays} times for "
+          f"{pipe.estimator.fused_steps} steady frames; eigh launches {counts['eigh']}",
+          flush=True)
     bad = loop_gates(r, LOOP_FRAMES)
+    if replays != pipe.estimator.fused_steps or not replays:
+        bad.append(f"{replays} graph replays for {pipe.estimator.fused_steps} fused steps")
     if pipe.vl_errors:
         bad.append(f"{pipe.vl_errors} visual-loop worker errors")
     if counts["K2 densify"] < 1:
@@ -1930,7 +2328,7 @@ def _sharded_inputs(frames, est, dev):
     """12c / 12d inputs: surf queries and map of phase 3's inputs, a
     ScanContext database of SC_CAPACITY slots holding the descriptors of
     phase 4's scans with the last one as the query, and the estimator state
-    phase 7 ended with."""
+    phase 7 had after SHARDED_WINDOW_FRAMES frames."""
     import torch
 
     from vil_fusion_tpu_torch.models import scancontext as sc
@@ -2031,7 +2429,8 @@ def _sharded_phase(inp, dev, card, backend="nccl"):
           f"{db.shape[0]} k=5 == knn_exact bit for bit; detect_loop_sharded on {SC_CAPACITY} "
           f"slots ({int(sdb.count)} descriptors) == detect_loop (slot {int(sc_s[0])}, distance "
           f"{float(sc_s[1]):.4f}, shift {int(sc_s[2])}); optimize_sharded against ba.optimize on "
-          f"phase 7's final window ({inp['ba'][1].active.shape[0]} feature slots, "
+          f"phase 7's window after {SHARDED_WINDOW_FRAMES} frames "
+          f"({inp['ba'][1].active.shape[0]} feature slots, "
           f"{cfg.max_iters} LM iterations): max |diff| {_fmt(d_ba)}, cost {float(ba_s[2]):.6g} "
           f"vs {float(ba_r[2]):.6g}; one GN step max |diff| {_fmt(d_step)}; host "
           f"{t_s * 1e3:.1f} / {t_r * 1e3:.1f} ms [{card}]", flush=True)
@@ -2235,9 +2634,15 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
     lap = _Ahead(pool.imap(_lap_frame, range(LOOP_FRAMES), chunksize=2))
     circuit_async = pool.map_async(_circuit_numpy, ["scan", "image"], chunksize=1)
 
-    # phase 2: build
+    # phase 2: build, one nvcc a source, side by side
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda as ec
+
     t1 = time.perf_counter()
-    kc.build(verbose=True)
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(kc.build, verbose=True), ex.submit(ec.build, verbose=True)]:
+            f.result()
     print(f"build: {time.perf_counter() - t1:.2f} s into {kc.BUILD_DIR}", flush=True)
     frames = scans.get()
     print(f"data: {len(frames)} simulated HDL-64 scans in {time.perf_counter() - t0:.1f} s "
@@ -2246,6 +2651,7 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
     # phase 3: kernels against their plain versions
     print(f"kernels: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
     records = _kernel_phase(frames, dev)
+    records["eigh"] = _eigh_phase(dev)
     launches = {k: {} for k in records}
 
     def add(path, counts):
@@ -2360,7 +2766,7 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
                "K2 densify": ("loop",),
                "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",),
                "Morton keys": ("sparse",), "K1 batched": ("batched",),
-               "K2 batched": ("batched exact",)}
+               "K2 batched": ("batched exact",), "eigh": ("vil", "deferred", "loop")}
     for kname, rec in records.items():
         rec["launches_by_path"] = launches[kname]
         rec["launches"] = sum(launches[kname].values())

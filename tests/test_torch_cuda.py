@@ -7,7 +7,11 @@ wrappers) against unbatched launches and batched odometry against single
 steps, the
 deferred pipeline (sync_depth=2) on the card against the CPU, the Schur
 solve's Cholesky fallback on the card, the device raycaster against itself
-on the CPU, and a KITTI odometry replay into a pipeline on the card.
+on the CPU, a KITTI odometry replay into a pipeline on the card, the
+symmetric eigensolver kernel (csrc/eigh.cu) against torch.linalg.eigh and
+float64, and the estimator's captured step (utils/graphs.py) against its
+eager body: over a sequence with both keyframe decisions, after the state
+is rebound, with no sync, without aliasing its outputs.
 
 Imports torch and numpy only (a CUDA machine need not have jax). Every
 test needs a card and skips without one. Where jax is not installed, skip
@@ -594,7 +598,7 @@ def test_cuda_fused_step_matches_cpu(cuda_device):
     args, kw = bundles[-1]
     out_c = cpu.process_frame(*args, **kw)
     out_g = gpu.process_frame(*args, **kw)
-    assert gpu.fused_steps == 1 and gpu.last_is_key == cpu.last_is_key
+    assert gpu.fused_steps == 1 and bool(gpu.last_is_key) == bool(cpu.last_is_key)
     assert not gpu.failed and not cpu.failed
     np.testing.assert_allclose(out_g[0], out_c[0], atol=1e-3)
     np.testing.assert_allclose(out_g[1], out_c[1], atol=1e-3)
@@ -736,3 +740,260 @@ def test_cuda_replay_kitti_lidar(cuda_device, tmp_path):
     gpu = out[str(cuda_device)]
     assert np.isfinite(gpu).all() and np.abs(gpu - out["cpu"]).max() < 0.02
     assert np.linalg.norm(gpu - gt, axis=1).max() < 0.1
+
+
+# the eigensolver's tolerances (chip_smoke.py EIGH_*: both float32 solvers
+# within ~5 n ulps of max|S| of the exact eigenvalues)
+EIGH_TOL_PLAIN, EIGH_TOL_F64, EIGH_TOL_RECON, EIGH_TOL_ORTH = 1e-4, 2e-5, 2e-5, 2e-5
+
+
+def _eigh_case(n, case, seed):
+    rng = np.random.default_rng(seed)
+    if case == "full rank":
+        A = rng.normal(size=(n + 20, n))
+        return A.T @ A
+    if case == "rank n/2":
+        B = rng.normal(size=(n // 2, n))
+        return B.T @ B
+    if case == "repeated":
+        Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        return (Q * np.repeat(rng.uniform(1.0, 10.0, (n + 2) // 3), 3)[:n]) @ Q.T
+    C = rng.normal(size=(n, n)) * np.exp(rng.uniform(-8.0, 18.0, n))  # "wide range"
+    return C.T @ C / n
+
+
+@pytest.mark.parametrize("case", ["full rank", "rank n/2", "repeated", "wide range"])
+@pytest.mark.parametrize("n", [1, 2, 15, 157, 172])
+def test_cuda_eigh_matches_plain(cuda_device, n, case):
+    """csrc/eigh.cu against torch.linalg.eigh and float64 at the
+    estimator's sizes (15, 157), the largest it takes (172, V^T in global
+    memory) and the smallest: eigenvalues ascending, within 1e-4 of max|S|
+    of torch.linalg.eigh's and 2e-5 of float64's, V diag(S) V^T within
+    2e-5 of max|A|, V^T V within 2e-5 of I; one launch counted; the same
+    matrices in one batched launch give each one's result bit for bit."""
+    from vil_fusion_tpu_torch.ops import linalg
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+
+    M = _eigh_case(n, case, n) if n > 2 else np.eye(n) * 3.0 + (n == 2)
+    A = torch.tensor(M, dtype=torch.float32, device=cuda_device)
+    before = eigh_cuda.eigh.launches
+    S, V = linalg.sym_eigh(A)
+    assert eigh_cuda.eigh.launches == before + 1
+    S0, _ = torch.linalg.eigh(A)
+    S64 = np.linalg.eigvalsh(A.double().cpu().numpy())
+    smax = np.abs(S64).max()
+    assert (S[1:] >= S[:-1]).all()
+    assert (S - S0).abs().max().item() <= EIGH_TOL_PLAIN * smax
+    assert np.abs(S.double().cpu().numpy() - S64).max() <= EIGH_TOL_F64 * smax
+    R = (V * S[None, :]) @ V.T
+    assert (R - A).abs().max().item() <= EIGH_TOL_RECON * A.abs().max().item()
+    assert (V.T @ V - torch.eye(n, device=cuda_device)).abs().max().item() <= EIGH_TOL_ORTH
+    batch = torch.stack([A, A.flip(0).flip(1), 2.0 * A])
+    Sb, Vb = eigh_cuda.eigh(batch)
+    for b in range(3):
+        S1, V1 = eigh_cuda.eigh(batch[b])
+        assert torch.equal(Sb[b], S1) and torch.equal(Vb[b], V1)
+
+
+def test_cuda_eigh_refuses(cuda_device):
+    """The wrapper raises on what the kernel does not take: float64, n above
+    172, a non-square matrix."""
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+
+    for bad in (torch.eye(4, dtype=torch.float64, device=cuda_device),
+                torch.eye(173, device=cuda_device), torch.ones(3, 4, device=cuda_device)):
+        with pytest.raises(ValueError):
+            eigh_cuda.eigh(bad)
+
+
+@pytest.fixture(scope="module")
+def gpu_sequence():
+    """An oracle-initialized estimator on the card at the deployed width
+    (EstimatorConfig defaults, 128 observation slots) over K + 8 frames of
+    _estimator_bundles; every fused step recorded (arguments, keywords,
+    outputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the captured step runs only on the card")
+    from vil_fusion_tpu_torch.models import estimator as est_mod
+
+    bundles, (p0, q0, v0), qic = _estimator_bundles(est_mod.K + 8)
+    est = est_mod.VILEstimator(est_mod.EstimatorConfig(), device="cuda")
+    est.set_extrinsics(qic=qic, tic=np.zeros(3))
+    est.set_initial_state(p=p0, q=q0, v=v0)
+    steps, step = [], est_mod.fused_full_step
+
+    def rec(*a, **kw):
+        out = step(*a, **kw)
+        steps.append((a, kw, out))
+        return out
+
+    est_mod.fused_full_step = rec
+    try:
+        for args, kw in bundles:
+            est.process_frame(*args, **kw)
+    finally:
+        est_mod.fused_full_step = step
+    torch.cuda.synchronize()
+    return est, steps, bundles
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [y for v in x for y in _leaves(v)]
+    if isinstance(x, dict):
+        return [y for k in sorted(x) for y in _leaves(x[k])]
+    return [x]
+
+
+def _body(a):
+    from vil_fusion_tpu_torch.models import estimator as est_mod
+
+    return est_mod._fused_full_step_body(*a[:17], run_ba=a[17], cfg=a[18])
+
+
+def test_cuda_graph_step_equals_body(gpu_sequence):
+    """Every steady step of the sequence (9 frames, both keyframe
+    decisions) replayed its graph, and each replay's outputs equal the eager
+    body's on the same inputs bit for bit (the step has no atomics: two
+    eager runs are identical); the eigensolver's launches are counted at
+    each replay, 4 a step."""
+    from vil_fusion_tpu_torch.models import estimator as est_mod
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+    from vil_fusion_tpu_torch.utils import graphs
+
+    est, steps, _ = gpu_sequence
+    assert len(steps) == est.fused_steps == 9
+    keys = []
+    for a, kw, out in steps:
+        for x, y in zip(_leaves(out), _leaves(_body(a))):
+            assert torch.equal(x, y)
+        keys.append(bool(out[5]["is_key"]))
+    assert any(keys) and not all(keys)
+    r0, e0 = graphs.replays.get("fused_full_step", 0), eigh_cuda.eigh.launches
+    a, kw, out = steps[-1]
+    again = est_mod.fused_full_step(*a, **kw)
+    assert graphs.replays["fused_full_step"] == r0 + 1 and eigh_cuda.eigh.launches == e0 + 4
+    for x, y in zip(_leaves(again), _leaves(out)):
+        assert torch.equal(x, y)
+
+
+def test_cuda_graph_after_rebinds(gpu_sequence):
+    """Host code rebinds the state between steps (a relocalization's
+    apply_drift, set_initial_state, a restart's new estimator): the next
+    step's graph replay equals the eager body from the rebound state, bit
+    for bit, with no new capture."""
+    from vil_fusion_tpu_torch.models import estimator as est_mod
+    from vil_fusion_tpu_torch.utils import graphs
+    from vil_fusion_tpu_torch.utils import state_io
+
+    est, steps, bundles = gpu_sequence
+    n_captures = len(graphs.captures)
+    a, kw, _ = steps[-1]
+    seg = a[5:]  # the last frame's segment and observations
+    yaw = 0.3
+    R = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+    est.apply_drift(R, np.array([1.0, -2.0, 0.5]))
+    fresh = est_mod.VILEstimator(est.cfg, device="cuda")  # a restart's estimator
+    state_io.estimator_load(fresh, state_io.estimator_to_numpy(est))
+    fresh.set_initial_state(p=np.array([0.5, 0.0, 0.0]), q=np.array([1.0, 0, 0, 0]),
+                            v=np.zeros(3))
+    for e in (est, fresh):
+        args = (e.window, e.feats, e.pre, e.lidar, e.prior) + seg
+        out = est_mod.fused_full_step(*args, **kw)
+        for x, y in zip(_leaves(out), _leaves(_body(args))):
+            assert torch.equal(x, y)
+    assert len(graphs.captures) == n_captures
+
+
+def test_cuda_graph_outputs_not_aliased(gpu_sequence):
+    """A step's outputs are fresh tensors: later replays (the frames a
+    deferred pipeline has in flight) leave them as they were, and no
+    output shares storage with another step's."""
+    from vil_fusion_tpu_torch.models import estimator as est_mod
+
+    _, steps, _ = gpu_sequence
+    a1, kw, _ = steps[-2]
+    a2, _, _ = steps[-1]
+    out1 = est_mod.fused_full_step(*a1, **kw)
+    snap = [x.clone() for x in _leaves(out1)]
+    out2 = est_mod.fused_full_step(*a2, **kw)
+    est_mod.fused_full_step(*a1, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(_leaves(out1), snap):
+        assert torch.equal(x, y)
+    ptrs = {x.data_ptr() for x in _leaves(out1) if x.numel()}
+    assert not ptrs & {x.data_ptr() for x in _leaves(out2) if x.numel()}
+
+
+def test_cuda_graph_replay_has_no_sync(gpu_sequence):
+    """A replay of the captured step under
+    torch.cuda.set_sync_debug_mode("error") raises nothing: it copies its
+    inputs, replays and clones its outputs without a host wait."""
+    from vil_fusion_tpu_torch.models import estimator as est_mod
+
+    _, steps, _ = gpu_sequence
+    a, kw, _ = steps[-1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        est_mod.fused_full_step(*a, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_cuda_marginalization_through_the_kernel(gpu_sequence):
+    """The sequence's final window marginalized on the card, both paths:
+    every matrix the marginalizations hand the eigensolver (the 15 x 15
+    Schur blocks, the 157 x 157 quadratics) through the kernel against
+    torch.linalg.eigh and float64 (the tolerances above), and each
+    quadratic's factor against it: J^T J within 1e-4 of the largest entry
+    of Lam, J^T r0 within 1e-3 of g's (test_quadratic_to_factor_invariants
+    of test_torch_marginalization.py), or within twice the distance of the
+    factor through torch.linalg.eigh where that is larger (a real window's
+    g is not in the numerical range of Lam: the eigenvalues at float32's
+    noise floor decide what of g survives, whatever the solver)."""
+    from vil_fusion_tpu_torch.models import marginalization as marg
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+
+    est, _, _ = gpu_sequence
+    mats, quads = [], []
+    to_factor = marg._quadratic_to_factor
+
+    def eigh_rec(A):
+        mats.append(A)
+        return eigh_cuda.eigh(A)
+
+    def factor_rec(Lam, g):
+        quads.append((Lam, g))
+        return to_factor(Lam, g)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(marg, "sym_eigh", eigh_rec)
+        mp.setattr(marg, "_quadratic_to_factor", factor_rec)
+        marg.marginalize_old(est.window, est.feats, est.pre, est.lidar, est.prior, est.cfg.ba)
+        marg.marginalize_second_new(est.prior, est.window)
+    assert sorted(A.shape[0] for A in mats) == [15, 15, 157, 157] and len(quads) == 2
+    for A in mats:
+        n = A.shape[0]
+        S, V = eigh_cuda.eigh(A)
+        S64 = np.linalg.eigvalsh(A.double().cpu().numpy())
+        smax = np.abs(S64).max()
+        assert (S - torch.linalg.eigh(A)[0]).abs().max().item() <= EIGH_TOL_PLAIN * smax
+        assert np.abs(S.double().cpu().numpy() - S64).max() <= EIGH_TOL_F64 * smax
+        R = (V * S[None, :]) @ V.T
+        assert (R - A).abs().max().item() <= EIGH_TOL_RECON * A.abs().max().item()
+        assert (V.T @ V - torch.eye(n, device=A.device)).abs().max().item() <= EIGH_TOL_ORTH
+    for Lam, g in quads:
+        L = (0.5 * (Lam + Lam.T)).double().cpu().numpy()
+        gn = g.double().cpu().numpy()
+        errs = []
+        for solver in (eigh_cuda.eigh, torch.linalg.eigh):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(marg, "sym_eigh", solver)
+                J, r0 = to_factor(Lam, g)
+            J, r0 = J.double().cpu().numpy(), r0.double().cpu().numpy()
+            errs.append((np.abs(J.T @ J - L).max() / np.abs(L).max(),
+                         np.abs(J.T @ r0 - gn).max() / np.abs(gn).max()))
+        (jj, jr), (jj_p, jr_p) = errs
+        assert jj <= max(1e-4, 2 * jj_p) and jr <= max(1e-3, 2 * jr_p)

@@ -121,22 +121,35 @@ class _KeyRecorder:
 @pytest.fixture(scope="module")
 def seq():
     """Both estimators, oracle-initialized at frame 0, over N_FRAMES
-    identical bundles; per frame the returned poses, keyframe decisions,
-    windows and failure flags."""
+    identical bundles; per frame the returned poses, keyframe decisions
+    (the port's as a host bool, and `key_raw` as the estimator left it),
+    windows and failure flags, and on steady frames `step`, the port's
+    fused_full_step call (arguments, keywords, result)."""
     bundles = _bundles()
     je, te = _estimators()
     q0, p0 = bundles[0]["gt"]
     for e in (je, te):
         e.set_initial_state(p=p0, q=q0, v=sim.Trajectory().velocity(1.0))
-    rec = []
+    rec, steps = [], []
+    port_step = test_.fused_full_step
+
+    def port_rec(*a, **kw):
+        out = port_step(*a, **kw)
+        steps.append((a, kw, out))
+        return out
+
     with pytest.MonkeyPatch.context() as mp:
         keys = _KeyRecorder(mp)
+        mp.setattr(test_, "fused_full_step", port_rec)
         for b in bundles:
-            n_keys = len(keys.keys)
+            n_keys, n_steps = len(keys.keys), len(steps)
             pj = je.process_frame(*b["args"], **b["kw"])
             pt = te.process_frame(*b["args"], **b["kw"])
+            key_raw = te.last_is_key
             rec.append(dict(pj=pj, pt=pt, key_j=keys.keys[n_keys] if len(keys.keys) > n_keys
-                            else None, key_t=te.last_is_key,
+                            else None, key_raw=key_raw,
+                            key_t=None if key_raw is None else bool(key_raw),
+                            step=steps[-1] if len(steps) > n_steps else None,
                             wj=state_io.to_numpy(je.window), wt=state_io.to_numpy(te.window),
                             failed=(je.failed, te.failed), gt=b["gt"]))
     return bundles, je, te, rec
@@ -183,7 +196,7 @@ def test_fused_step_from_carried_state(seq):
         keys = _KeyRecorder(mp)
         pj = je.process_frame(*nxt["args"], **nxt["kw"])
     pt = te.process_frame(*nxt["args"], **nxt["kw"])
-    assert te.fused_steps == 1 and te.last_is_key == keys.keys[-1]
+    assert te.fused_steps == 1 and bool(te.last_is_key) == keys.keys[-1]
     np.testing.assert_allclose(pt[0], pj[0], atol=1e-4)
     assert _rot_err(pt[1], pj[1]) < 1e-4
     np.testing.assert_allclose(te.last_cost, je.last_cost, rtol=1e-2, atol=1e-3)
@@ -329,3 +342,87 @@ def test_cold_start_matches_reference():
             np.testing.assert_allclose(pt[0], pj[0], atol=1e-2)
     assert init_j is not None and init_t == init_j
     assert not je.failed and not te.failed
+
+
+def test_is_key_is_a_0d_bool_tensor(seq):
+    """Every steady frame's keyframe decision comes out of fused_full_step
+    as a 0-d bool tensor (the reference's is a 0-d bool array), equal to
+    the JAX step's; the filling phase's host path leaves a host bool."""
+    _, _, _, rec = seq
+    for i, r in enumerate(rec):
+        if i < K - 1:
+            assert r["step"] is None and r["key_raw"] is None, i  # the window fills
+            continue
+        k = r["step"][2][5]["is_key"]
+        assert isinstance(k, torch.Tensor) and k.shape == () and k.dtype == torch.bool, i
+        assert r["key_raw"] is k and bool(k) == r["key_j"], i
+
+
+_HOST_READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "cpu",
+               "numpy")
+
+
+@pytest.mark.parametrize("key", [True, False], ids=["keyframe", "non-keyframe"])
+def test_step_reads_nothing_on_host(seq, key):
+    """fused_full_step of a keyframe frame and of a non-keyframe frame of
+    the sequence, run again from its recorded inputs with every host read
+    of a tensor (bool(), int(), float(), index(), item, tolist, cpu, numpy)
+    made to raise: it runs, and gives the recorded result bit for bit."""
+    _, _, _, rec = seq
+    r = next(r for r in rec[K - 1:] if r["key_t"] is key)
+    args, kw, ref = r["step"]
+
+    def refuse(name):
+        def read(*_a, **_k):
+            raise AssertionError(f"host read inside the step: Tensor.{name}")
+        return read
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in _HOST_READS:
+            mp.setattr(torch.Tensor, name, refuse(name))
+        out = test_.fused_full_step(*args, **kw)
+    for a, b in zip(_leaves(out), _leaves(ref)):
+        assert torch.equal(a, b)
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [y for v in x for y in _leaves(v)]
+    if isinstance(x, dict):
+        return [y for k in sorted(x) for y in _leaves(x[k])]
+    return [x]
+
+
+@pytest.mark.parametrize("key", [True, False], ids=["keyframe", "non-keyframe"])
+def test_device_select_equals_host_branch(seq, key):
+    """The marginalization selected on the device by a 0-d bool tensor
+    (_marginalize_and_slide_select, which computes both paths) equals the
+    host branch of that decision (_marginalize_and_slide) bit for bit, on
+    every field of window, feats, pre, lidar and prior; from the port's
+    final state."""
+    _, _, te, _ = seq
+    state = (te.window, te.feats, te.pre, te.lidar, te.prior)
+    assert bool(te.prior.valid)
+    dev = test_._marginalize_and_slide_select(torch.tensor(key), *state, te.cfg)
+    host = test_._marginalize_and_slide(key, *state, te.cfg)
+    for a, b in zip(_leaves(dev), _leaves(host)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_fused_full_step_on_cpu_is_the_body(seq, monkeypatch):
+    """On CPU tensors fused_full_step runs its eager body and never the
+    graph module: the same result as _fused_full_step_body, bit for bit."""
+    from vil_fusion_tpu_torch.utils import graphs
+
+    _, _, _, rec = seq
+    args, kw, ref = rec[-1]["step"]
+
+    def no_graph(*_a, **_k):
+        raise AssertionError("graphs.step on the CPU")
+
+    monkeypatch.setattr(graphs, "step", no_graph)
+    out = test_.fused_full_step(*args, **kw)
+    assert len(args) == 19  # VILEstimator passes run_ba and cfg by position
+    body = test_._fused_full_step_body(*args[:17], run_ba=args[17], cfg=args[18])
+    for a, b, c in zip(_leaves(out), _leaves(body), _leaves(ref)):
+        assert torch.equal(a, b) and torch.equal(a, c)

@@ -14,7 +14,8 @@ the host clock (no profiler: starting one costs seconds), then traces the
 next `--frames` frames with torch.profiler (CPU + CUDA activities) and
 prints: wall time per frame without the profiler, device kernel time per
 frame and its share of that wall time (the device's busy share), kernel
-launches per frame, launches, host waits and copies per frame inside each
+launches per frame (a CUDA graph's replay counts as one launch, its
+kernels as device time), launches, host waits and copies per frame inside each
 GLOBAL_TIMERS stage (the visual-loop worker's jobs are the stage
 "visual_loop"; the trace covers every thread), the kNN kernels' share of the
 device time, and the ten kernels with the most device time. Needs one
@@ -116,7 +117,8 @@ def _stepper(path: str, n: int, dev):
     return step
 
 
-_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+# a CUDA graph's replay (the estimator's step) is one cudaGraphLaunch
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
 _WAIT_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
@@ -193,10 +195,11 @@ def main() -> int:
                and e.key not in stage_names]
     dev_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in events if e.key in _LAUNCH_KEYS)
+    graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
     print(f"{args.path}: {wall_ms:.2f} ms/frame wall over {n} frames without the profiler; "
           f"device kernels {dev_us / 1e3 / n:.3f} ms/frame over the next {n} = "
-          f"{dev_us / 10 / n / wall_ms:.2f}% busy; {launches / n:.0f} kernel launches/frame",
-          flush=True)
+          f"{dev_us / 10 / n / wall_ms:.2f}% busy; {launches / n:.0f} kernel launches/frame "
+          f"({graph_launches / n:.1f} of them graph replays)", flush=True)
     syncs = {e.key: e.count for e in events
              if "Memcpy" in e.key or "Synchronize" in e.key or e.key == "aten::item"}
     print(f"  host waits per frame: " + ", ".join(f"{k} {v / n:.1f}" for k, v in

@@ -11,9 +11,12 @@ frame is the front end (`runtime.pipeline.vil_front_end`: tracker, lidar
 odometry, extrinsic glue, depth association) and the estimator's fused step
 (`models.estimator.fused_full_step`: IMU preintegration, feature ingest,
 triangulation, bundle adjustment, marginalization, window slide), with the
-cold-start initialization. The kNN kernels (grouped, exact and sparse
-Morton, `csrc/knn.cu`, bound in `ops/cuda/knn_cuda.py`) are hand-written
-CUDA; everything else is plain PyTorch. Module layout and names mirror
+cold-start initialization; on the card the fused step is one captured CUDA
+graph (`utils/graphs.py`). The kNN kernels (grouped, exact and sparse
+Morton, `csrc/knn.cu`, bound in `ops/cuda/knn_cuda.py`) and the
+marginalization's symmetric eigensolver (`csrc/eigh.cu`,
+`ops/cuda/eigh_cuda.py`) are hand-written CUDA; everything else is plain
+PyTorch. Module layout and names mirror
 `vil_fusion_tpu`, which stays the reference. This package imports torch
 and numpy, never jax. Entry points place their tensors on `device="cuda"`
 unless the caller asks for another device.

@@ -31,6 +31,7 @@ from vil_fusion_tpu_torch.models.window import (
     D, K, FeatureStore, LidarConstraints, StackedPreint, WindowState, retract,
 )
 from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 # MargPrior lives in factors.py; re-export for callers
 MargPrior = factors.MargPrior
@@ -150,8 +151,9 @@ def _proj_blocks(state: WindowState, feats: FeatureStore, cfg: BAConfig, dtype,
     without `jac`."""
     dev = state.p.device
     F = feats.active.shape[0]
-    f_idx = torch.arange(F, device=dev).repeat_interleave(K)
-    j_idx = torch.arange(K, device=dev).repeat(F)
+    n_idx = torch.arange(F * K, device=dev)
+    f_idx = torch.div(n_idx, K, rounding_mode="floor")
+    j_idx = n_idx - K * f_idx
     s_idx = feats.start[f_idx].long()
     valid = (feats.active[f_idx] & feats.obs_valid[f_idx, s_idx]
              & feats.obs_valid[f_idx, j_idx] & (j_idx != s_idx)
@@ -251,7 +253,7 @@ def window_system(state: WindowState, pre: StackedPreint, lidar: LidarConstraint
     marginalization prior, IMU and LiDAR (replicated in the sharded BA,
     which adds them on one rank)."""
     dtype, dev = state.p.dtype, state.p.device
-    g = torch.as_tensor(cfg.gravity, dtype=dtype, device=dev)
+    g = host_constant(cfg.gravity, dtype, dev)
     H = torch.zeros((D, D), dtype=dtype, device=dev)
     b = torch.zeros((D,), dtype=dtype, device=dev)
 
@@ -300,7 +302,7 @@ def build_system(state: WindowState, feats: FeatureStore, pre: StackedPreint,
 def window_cost(state, pre, lidar, prior, cfg: BAConfig):
     """The cost of `window_system`'s factors, without their Jacobians."""
     dtype, dev = state.p.dtype, state.p.device
-    g = torch.as_tensor(cfg.gravity, dtype=dtype, device=dev)
+    g = host_constant(cfg.gravity, dtype, dev)
     r_p = factors.marg_prior_residual(prior, state)
     cost = torch.sum(r_p * r_p)
     r, _, _ = _imu_blocks(state, pre, g, dtype, jac=False)
@@ -407,7 +409,7 @@ def lm_loop(state: WindowState, feats: FeatureStore, cfg: BAConfig, build, solve
     # graduated non-convexity: anneal the Cauchy scale 16 -> 1 over the first
     # iterations so far-out (but inlier) residuals keep gradient early on
     sched = [max(1.0, 16.0 * 0.25 ** k) for k in range(cfg.max_iters)]
-    lam = torch.tensor(cfg.lm_init, dtype=dtype, device=dev)
+    lam = host_constant(cfg.lm_init, dtype, dev)
     cost = None
     for cauchy_c in sched:
         sys = build(state, feats, cauchy_c)

@@ -11,19 +11,25 @@ ingest, keyframe decision, triangulation, BA, marginalization, slide); the
 host-side `VILEstimator` drives it once per synchronized bundle, and runs
 the filling phase and the cold start itself.
 
-Where the reference branches on device values with `lax.cond`, this port
-branches on the host:
+On a CUDA device `fused_full_step` is one captured CUDA graph
+(utils/graphs.step, keyed on (cfg, run_ba) and the arguments' shapes: the
+reference's `jax.jit` with static_argnames=("cfg",)), replayed every frame
+with no host read inside it; `_fused_full_step_body` is its plain eager
+body, which the CPU (and the sharded BA, whose gloo / NCCL collectives a
+graph cannot hold) runs directly. Where the reference branches on device
+values with `lax.cond`:
   * `run_ba` (BA + failure detection) is a host flag, True on the steady
     path;
-  * the keyframe decision, which picks the marginalization path, is read
-    once per frame on the host (`bool(is_key)`) after the BA is enqueued;
-    the frame already reads its pose, cost and failure mask there.
+  * the keyframe decision picks the marginalization path on the device:
+    both paths run and every field of the result is selected with
+    torch.where on the 0-d decision (`_marginalize_and_slide_select`).
 No window tensor is written in place: every update makes a new tensor
 (window.set_row), so views taken before an update (the failure check's
 previous pose) keep their values.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -39,6 +45,8 @@ from vil_fusion_tpu_torch.models.window import (
 )
 from vil_fusion_tpu_torch.ops import lie
 from vil_fusion_tpu_torch.ops.linalg import smallest_eigvec_inverse_iteration
+from vil_fusion_tpu_torch.utils import graphs
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 MIN_PARALLAX = 10.0 / 460.0  # parameters.cpp MIN_PARALLAX / FOCAL_LENGTH
 
@@ -260,21 +268,47 @@ def fused_full_step(window: WindowState, feats: FeatureStore, pre: StackedPreint
                     acc_b, gyr_b, dt_b, n_imu,  # padded IMU segment buffers + count
                     ids_b, xy_b, vel_b, dep_b, tsh_b,  # padded feature observations
                     lidar_q_rel, lidar_p_rel, lidar_valid,
-                    run_ba: bool, cfg: EstimatorConfig):
+                    run_ba: bool, cfg: EstimatorConfig, capture_lock=None):
     """The entire full-window frame: IMU segment + propagate + lidar
     constraint + feature ingest + keyframe decision + triangulate + BA +
     marginalize + slide.
 
-    `n_imu` is the segment's sample count (a host int or a 0-d tensor);
-    `lidar_valid` a 0-d bool tensor; `run_ba` a host bool (initialized: BA +
-    failure detection). Returns (window, feats, pre, lidar, prior, outputs)
-    with outputs {p, q, v, cost, failed} of the newest frame, before the
-    slide, as device tensors, and is_key, the keyframe decision read on the
-    host."""
+    `n_imu` is the segment's sample count (a host int or a 0-d int32
+    tensor); `lidar_valid` a host bool or a 0-d bool tensor; `run_ba` a host
+    bool (initialized: BA + failure detection). Returns (window, feats, pre,
+    lidar, prior, outputs) with outputs {p, q, v, cost, failed, is_key} of
+    the newest frame, before the slide, all device tensors (is_key 0-d
+    bool). Nothing is read on the host.
+
+    On a CUDA device (and cfg.ba.sharded False) the step replays its CUDA
+    graph (utils/graphs.step), captured at the first call for this (cfg,
+    run_ba, argument shapes) with `capture_lock` held; the outputs are fresh
+    tensors. Elsewhere it runs `_fused_full_step_body` eagerly: on the CPU,
+    and with the sharded BA, whose collectives a graph cannot hold."""
+    args = (window, feats, pre, lidar, prior, acc_b, gyr_b, dt_b, n_imu, ids_b, xy_b, vel_b,
+            dep_b, tsh_b, lidar_q_rel, lidar_p_rel, lidar_valid)
+    if window.p.is_cuda and not cfg.ba.sharded:
+        body = functools.partial(_fused_full_step_body, run_ba=run_ba, cfg=cfg)
+        return graphs.step("fused_full_step", body, args, static=(run_ba, cfg),
+                           lock=capture_lock)
+    return _fused_full_step_body(*args, run_ba=run_ba, cfg=cfg)
+
+
+def _fused_full_step_body(window: WindowState, feats: FeatureStore, pre: StackedPreint,
+                          lidar: LidarConstraints, prior, acc_b, gyr_b, dt_b, n_imu,
+                          ids_b, xy_b, vel_b, dep_b, tsh_b, lidar_q_rel, lidar_p_rel,
+                          lidar_valid, run_ba: bool, cfg: EstimatorConfig):
+    """fused_full_step's eager body (the graph holds what one call of it
+    enqueues): reads nothing on the host and copies no host data to the
+    device (its constants are `host_constant`s, host numbers become device
+    scalars by a fill)."""
     fc = K - 1
     dtype, dev = window.p.dtype, window.p.device
-    gravity = torch.as_tensor(cfg.ba.gravity, dtype=dtype, device=dev)
-    n_imu = torch.as_tensor(n_imu, dtype=torch.int32, device=dev)
+    gravity = host_constant(cfg.ba.gravity, dtype, dev)
+    if not isinstance(n_imu, torch.Tensor):
+        n_imu = torch.full((), n_imu, dtype=torch.int32, device=dev)
+    if not isinstance(lidar_valid, torch.Tensor):
+        lidar_valid = torch.full((), lidar_valid, dtype=torch.bool, device=dev)
 
     # --- IMU segment into slot K-1 + state propagation ---
     seg = make_segment(acc_b, gyr_b, dt_b, n_imu, window.ba[fc - 1], window.bg[fc - 1],
@@ -315,11 +349,10 @@ def fused_full_step(window: WindowState, feats: FeatureStore, pre: StackedPreint
     out_q = window.q[K - 1].clone()
     out_v = window.v[K - 1].clone()
 
-    # --- marginalize + slide (keyframe vs non-keyframe path) ---
-    key = bool(is_key)  # the step's host read: it picks the marginalization path
-    window, feats, pre, lidar, prior = _marginalize_and_slide(
-        key, window, feats, pre, lidar, prior, cfg)
-    outputs = dict(p=out_p, q=out_q, v=out_v, cost=cost, failed=failed, is_key=key)
+    # --- marginalize + slide (keyframe vs non-keyframe path, on the device) ---
+    window, feats, pre, lidar, prior = _marginalize_and_slide_select(
+        is_key, window, feats, pre, lidar, prior, cfg)
+    outputs = dict(p=out_p, q=out_q, v=out_v, cost=cost, failed=failed, is_key=is_key)
     return window, feats, pre, lidar, prior, outputs
 
 
@@ -331,6 +364,25 @@ def _optimize(window, feats, pre, lidar, prior, cfg: ba.BAConfig):
 
         return sharded_ba.optimize_on_active_mesh(window, feats, pre, lidar, prior, cfg)
     return ba.optimize(window, feats, pre, lidar, prior, cfg)
+
+
+def _select(cond, a, b):
+    """torch.where(cond, a, b) over equal (Named)tuples of tensors; a tensor
+    both sides share is taken as it is."""
+    if isinstance(a, tuple):
+        vals = [_select(cond, x, y) for x, y in zip(a, b)]
+        return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+    return a if a is b else torch.where(cond, a, b)
+
+
+def _marginalize_and_slide_select(is_key, window, feats, pre, lidar, prior,
+                                  cfg: EstimatorConfig):
+    """Both marginalization paths, every field of (window, feats, pre,
+    lidar, prior) selected by the 0-d bool `is_key` on the device: the
+    result of the reference's lax.cond (estimator.py:380), with no host
+    read. The non-keyframe path's cost is paid on every frame."""
+    return _select(is_key, _marginalize_and_slide(True, window, feats, pre, lidar, prior, cfg),
+                   _marginalize_and_slide(False, window, feats, pre, lidar, prior, cfg))
 
 
 def _marginalize_and_slide(is_key: bool, window, feats, pre, lidar, prior,
@@ -373,10 +425,15 @@ class VILEstimator:
         self.failed = False
         self.fail_mask = 0  # failure_detection bitmask of the failing frame
         self.last_cost = 0.0
-        self.last_is_key = None  # keyframe decision of the last frame
+        # keyframe decision of the last frame: a 0-d bool device tensor after a
+        # fused step (read it once the step is done), a host bool otherwise
+        self.last_is_key = None
         self.fused_steps = 0  # frames that ran fused_full_step
         self.init_failures: dict = {}  # cold-start attempts refused, by gate
         self.gravity = torch.as_tensor(cfg.ba.gravity, dtype=dtype, device=self.device)
+        # held while fused_full_step captures its graph: a pipeline whose
+        # visual-loop worker enqueues on the same device sets its step lock
+        self.capture_lock = None
 
     def _t(self, x, dtype=None):
         return torch.as_tensor(np.array(x), dtype=dtype or self.dtype, device=self.device)
@@ -509,22 +566,21 @@ class VILEstimator:
         fused_full_step and returns its output dict of device tensors (p, q,
         v, cost, failed, is_key). The caller fetches out["cost"] and
         out["failed"] later and passes them to `absorb_result` (deferred
-        failure detection, the reference's sync_depth > 0 path). The
-        keyframe decision that picks the marginalization path is still read
-        on the host inside the step; everything after it is deferred."""
+        failure detection, the reference's sync_depth > 0 path). Nothing is
+        read on the host: on the card the step is a graph replay."""
         if not (self.frame_count >= K - 1 and self.initialized):
             raise ValueError("process_frame_device_async needs an initialized, full window")
         has_lidar = lidar_q_rel is not None
         if not has_lidar:
-            lidar_q_rel = torch.tensor([1.0, 0, 0, 0], dtype=self.dtype, device=self.device)
-            lidar_p_rel = torch.zeros(3, dtype=self.dtype, device=self.device)
+            lidar_q_rel = host_constant((1.0, 0, 0, 0), self.dtype, self.device)
+            lidar_p_rel = host_constant((0.0, 0, 0), self.dtype, self.device)
         if tsh is None:
             tsh = torch.zeros_like(dep)
         (self.window, self.feats, self.pre, self.lidar, self.prior,
          out) = fused_full_step(
             self.window, self.feats, self.pre, self.lidar, self.prior,
             acc_b, gyr_b, dt_b, n_imu, ids, xy, vel, dep, tsh, lidar_q_rel, lidar_p_rel,
-            torch.tensor(has_lidar, device=self.device), True, self.cfg)
+            has_lidar, True, self.cfg, capture_lock=self.capture_lock)
         self.fused_steps += 1
         self.last_is_key = out["is_key"]
         return out

@@ -21,6 +21,7 @@ import torch
 from vil_fusion_tpu_torch.models import imu as imu_mod
 from vil_fusion_tpu_torch.models.window import WindowState, local_diff
 from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 FOCAL_LENGTH = 460.0  # parameters.h:25
 PROJ_SQRT_INFO = FOCAL_LENGTH / 1.5  # projection_factor.cpp sqrt_info
@@ -71,7 +72,7 @@ def lidar_rel_residual(q_meas, p_meas, p_i, q_i, p_j, q_j):
     p_ij = lie.qrot(lie.qconj(q_i), p_j - p_i)
     r_t = p_ij - p_meas
     r_q = 2.0 * lie.qmul(lie.qconj(q_meas), q_ij)[..., 1:]
-    w = torch.as_tensor(LIDAR_SQRT_INFO, dtype=p_i.dtype, device=p_i.device)
+    w = host_constant(LIDAR_SQRT_INFO, p_i.dtype, p_i.device)
     return w * torch.cat([r_t, r_q], dim=-1)
 
 

@@ -20,9 +20,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 
 class ImuNoise(NamedTuple):
@@ -49,16 +51,9 @@ class Preintegrated(NamedTuple):
 
 def _noise_cov(noise: ImuNoise, dtype, device) -> torch.Tensor:
     """18x18 discrete noise covariance (integration_base.h:39-46 semantics)."""
-    d = torch.tensor(
-        [noise.acc_n**2] * 3
-        + [noise.gyr_n**2] * 3
-        + [noise.acc_n**2] * 3
-        + [noise.gyr_n**2] * 3
-        + [noise.acc_w**2] * 3
-        + [noise.gyr_w**2] * 3,
-        dtype=dtype, device=device,
-    )
-    return torch.diag(d)
+    d = ([noise.acc_n**2] * 3 + [noise.gyr_n**2] * 3 + [noise.acc_n**2] * 3
+         + [noise.gyr_n**2] * 3 + [noise.acc_w**2] * 3 + [noise.gyr_w**2] * 3)
+    return host_constant(np.diag(d), dtype, device)
 
 
 def _midpoint_step(carry, inputs, ba, bg, Q18):
@@ -124,7 +119,7 @@ def preintegrate(acc, gyr, dt, ba, bg, noise: ImuNoise = ImuNoise(),
     dtype, dev = acc.dtype, acc.device
     Q18 = _noise_cov(noise, dtype, dev)
     carry = (torch.zeros(3, dtype=dtype, device=dev),
-             torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=dev),
+             host_constant((1.0, 0, 0, 0), dtype, dev),
              torch.zeros(3, dtype=dtype, device=dev),
              torch.eye(15, dtype=dtype, device=dev),
              torch.zeros((15, 15), dtype=dtype, device=dev))
@@ -186,7 +181,7 @@ def preintegrate_parallel(acc, gyr, dt, ba, bg, noise: ImuNoise = ImuNoise()) ->
     # 1-2: prefix rotations
     r = lie.so3_exp(un_gyr * dt[:, None])  # (N, 4)
     (dq_after,) = associative_scan(lambda x, y: (lie.qnormalize(lie.qmul(x[0], y[0])),), (r,))
-    q_id = torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=dev)
+    q_id = host_constant((1.0, 0, 0, 0), dtype, dev)
     dq_before = torch.cat([q_id[None], dq_after[:-1]], dim=0)
     R0 = lie.q2R(dq_before)  # (N, 3, 3)
     R1 = lie.q2R(dq_after)

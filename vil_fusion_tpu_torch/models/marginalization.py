@@ -8,7 +8,8 @@ removeBackShiftDepth, feature_manager.cpp:292-339).
 
 The Hessian assembly reuses ba's factor blocks; the Schur complement and the
 (J, r0) re-factorization are two symmetric eigendecompositions of small
-dense matrices (torch.linalg.eigh). Eigenvectors carry an arbitrary sign
+dense matrices (ops/linalg.sym_eigh: the Jacobi kernel of csrc/eigh.cu on
+the card, torch.linalg.eigh on the CPU). Eigenvectors carry an arbitrary sign
 and, for equal eigenvalues, an arbitrary basis, so what other code may rely
 on is J^T J and J^T r0, never J itself. Nothing here writes its inputs.
 """
@@ -22,6 +23,8 @@ from vil_fusion_tpu_torch.models.window import (
     D, K, FeatureStore, LidarConstraints, StackedPreint, WindowState, make_segment, set_row,
 )
 from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.ops.linalg import sym_eigh
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 MargPrior = factors.MargPrior
 _EIG_EPS = 1e-8  # eigenvalue threshold (marginalization_factor.cpp:267-276)
@@ -31,7 +34,7 @@ def _quadratic_to_factor(Lam, g):
     """Express quadratic (Lam, g) as linear factor (J, r0) with J^T J = Lam,
     J^T r0 = g (marginalization_factor.cpp:288-297 semantics)."""
     Lam = 0.5 * (Lam + Lam.T)
-    S, V = torch.linalg.eigh(Lam)
+    S, V = sym_eigh(Lam)
     ok = S > _EIG_EPS
     S_sqrt = torch.where(ok, torch.sqrt(torch.clamp(S, min=_EIG_EPS)), 0.0)
     S_inv_sqrt = torch.where(ok, 1.0 / torch.clamp(S_sqrt, min=_EIG_EPS), 0.0)
@@ -45,7 +48,7 @@ def _schur_eliminate(Lam, g, m_idx, r_idx):
     (index tensors or slices)."""
     Lmm = Lam[m_idx][:, m_idx]
     Lmm = 0.5 * (Lmm + Lmm.T)
-    S, V = torch.linalg.eigh(Lmm)
+    S, V = sym_eigh(Lmm)
     S_inv = torch.where(S > _EIG_EPS, 1.0 / torch.clamp(S, min=_EIG_EPS), 0.0)
     Lmm_inv = (V * S_inv[None, :]) @ V.T
     Lrm = Lam[r_idx][:, m_idx]
@@ -73,7 +76,7 @@ def marginalize_old(state: WindowState, feats: FeatureStore, pre: StackedPreint,
     eliminate those features' depths then the 15 frame-0 dims, re-factorize,
     and re-index into the slid window (estimator.cpp:862-1046 semantics)."""
     dtype, dev = state.p.dtype, state.p.device
-    g_vec = torch.as_tensor(cfg.gravity, dtype=dtype, device=dev)
+    g_vec = host_constant(cfg.gravity, dtype, dev)
     F = feats.active.shape[0]
 
     # prior factor (touches everything)
@@ -165,8 +168,8 @@ def slide_old(state: WindowState, feats: FeatureStore, pre: StackedPreint,
 
     new_pre = StackedPreint(**{k: _shift_zero(v) for k, v in pre._asdict().items()})
     new_lidar = LidarConstraints(
-        q_rel=torch.cat([lidar.q_rel[1:], torch.tensor([[1.0, 0, 0, 0]], dtype=dtype,
-                                                       device=dev)], dim=0),
+        q_rel=torch.cat([lidar.q_rel[1:], host_constant(((1.0, 0, 0, 0),), dtype, dev)],
+                        dim=0),
         p_rel=_shift_zero(lidar.p_rel), valid=_shift_zero(lidar.valid))
 
     # ---- features: depth handover to the new anchor (frame 1's camera) ----
@@ -263,7 +266,7 @@ def slide_new(state: WindowState, feats: FeatureStore, pre: StackedPreint,
 
     seg = make_segment(acc_m, gyr_m, dt_m, n_m, pre.ba[i], pre.bg[i], imu_noise, imu_cap)
     eye15 = torch.eye(15, dtype=dtype, device=dev)
-    empty = dict(dq=torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=dev), jac=eye15,
+    empty = dict(dq=host_constant((1.0, 0, 0, 0), dtype, dev), jac=eye15,
                  sqrt_info=eye15, valid=torch.zeros((), dtype=torch.bool, device=dev))
     # the reference writes the decimated buffers back before merging; slot j
     # is then cleared and slot i overwritten, so only the merged row remains

@@ -157,9 +157,14 @@ def make_segment(acc, gyr, dt, n_samples, ba, bg, noise, imu_cap: int):
 
 def set_row(a, i, v):
     """A copy of `a` with row i set to v (the reference's a.at[i].set(v));
-    the input is never written, so views of it stay what they were."""
+    the input is never written, so views of it stay what they were. A host
+    number is filled in: assigned, it would be copied from the host (a
+    wait for the device, and not allowed inside a CUDA graph capture)."""
     out = a.clone()
-    out[i] = v
+    if isinstance(v, torch.Tensor):
+        out[i] = v
+    else:
+        out[i].fill_(v)
     return out
 
 

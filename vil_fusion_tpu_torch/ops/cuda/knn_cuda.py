@@ -16,21 +16,16 @@ ops/knn.py, re-exported here as `knn_grouped_plain` / `knn_exact_plain` /
 `knn_sparse_plain` / `morton_keys_plain`.
 
 The kernels are CUDA C++ (csrc/knn.cu), compiled with nvcc for sm_90a into
-build/kernels/ at first use and bound with ctypes: pointers from
+build/kernels/ at first use (ops/cuda/nvcc.py) and bound with ctypes: pointers from
 `data_ptr()`, the stream from `torch.cuda.current_stream()`. Importing this
 module builds nothing. There is no fallback: a CUDA tensor either runs the
 kernel or raises.
 """
 import ctypes
 import functools
-import hashlib
 import math
-import os
 import re
-import shutil
-import subprocess
 import threading
-import time
 from contextlib import contextmanager
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -38,11 +33,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from vil_fusion_tpu_torch.ops import knn as knn_plain
+from vil_fusion_tpu_torch.ops.cuda import nvcc
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "knn.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+BUILD_DIR, NVCC_FLAGS = nvcc.BUILD_DIR, nvcc.NVCC_FLAGS  # (the tools build older sources)
 MAX_K = 8
 _THREADS = 128  # threads per block and columns per group (csrc/knn.cu)
 
@@ -87,23 +81,10 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     global _lib
     if _lib is not None and not verbose:
         return _lib
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libvil_knn_{tag}.so"
-    if not out.exists() or verbose:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        res = subprocess.run([nvcc, *flags, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) on {SOURCE}:\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-        if verbose:
-            print(f"nvcc {SOURCE.name}: {time.perf_counter() - t0:.2f} s", flush=True)
-            print(_ptxas_summary(res.stdout + res.stderr), flush=True)
+    out, log, secs = nvcc.compile_library(SOURCE, "vil_knn", verbose)
+    if verbose:
+        print(f"nvcc {SOURCE.name}: {secs:.2f} s", flush=True)
+        print(_ptxas_summary(log), flush=True)
     lib = ctypes.CDLL(str(out))
     fn = lib.vil_knn_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 3

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from vil_fusion_tpu_torch.utils.graphs import host_constant
+
 # Tangent-space state ordering of the sliding-window estimator.
 O_P, O_R, O_V, O_BA, O_BG = 0, 3, 6, 9, 12
 
@@ -267,7 +269,7 @@ def ypr2R(ypr):
 def g2R(g):
     """Rotation taking gravity direction g to +z with zero yaw."""
     ng1 = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=_EPS)
-    ng2 = torch.tensor([0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
+    ng2 = host_constant((0.0, 0.0, 1.0), g.dtype, g.device)
     v = _cross(ng1, ng2)
     c = torch.sum(ng1 * ng2, dim=-1)
     vn = torch.linalg.norm(v, dim=-1)

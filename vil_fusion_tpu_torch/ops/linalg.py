@@ -3,7 +3,9 @@
 Port of vil_fusion_tpu/ops/linalg.py: Cardano eigenvalues + cross-product
 eigenvectors for thousands of 3x3 covariances per frame, the unrolled
 Cholesky solve of the 6x6 Gauss-Newton system, and what the tracker's RANSAC
-needs (Cramer 3x3 solve, smallest eigenvector by inverse iteration).
+needs (Cramer 3x3 solve, smallest eigenvector by inverse iteration), and
+`sym_eigh`, the dispatcher of the symmetric eigensolver of the
+marginalization (the reference's jnp.linalg.eigh).
 """
 from __future__ import annotations
 
@@ -167,3 +169,17 @@ def smallest_eigvec_inverse_iteration(A, iters: int = 4, shift: float = 1e-6):
         z = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
         x = z / torch.clamp(torch.linalg.norm(z, dim=-1, keepdim=True), min=1e-30)
     return x
+
+
+def sym_eigh(A):
+    """(eigenvalues ascending, eigenvectors as columns) of the symmetric
+    float32 A (..., n, n), from its lower triangle: on a CUDA tensor the
+    Jacobi kernel of csrc/eigh.cu (ops/cuda/eigh_cuda.eigh, n <= 172), which
+    never waits for the device; on the CPU its plain version,
+    torch.linalg.eigh. Eigenvectors of either carry an arbitrary sign (and
+    basis, for a repeated eigenvalue)."""
+    if A.device.type == "cpu":
+        return torch.linalg.eigh(A)
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+
+    return eigh_cuda.eigh(A)

@@ -118,6 +118,17 @@ def _odom_config(rig: RigConfig, odom_overrides: Optional[dict]) -> lo.OdomConfi
     return cfg
 
 
+def _upload(x, device) -> torch.Tensor:
+    """A host array on `device`. On the card through pinned memory and
+    without waiting for the stream (a pageable copy would wait for every
+    kernel enqueued before it); the caching host allocator keeps the pinned
+    block until the copy is done."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def frame_seed(t: float) -> int:
     """The frame's RANSAC seed, derived on the host from the float64
     timestamp: floor(t * 1000) & 0x7FFFFFFF (the reference derives its key
@@ -188,12 +199,14 @@ def vil_frame(tracker_state: trk.TrackerState, lidar_state: lo.MapState,
               window, feats, pre, lidarc, prior, img, pts, val, acc_b, gyr_b, dt_b,
               n_imu: int, t: float, fe: FrontEnd, ecfg: est_mod.EstimatorConfig,
               frame_index: Optional[int] = None, generator: Optional[torch.Generator] = None,
-              sel=None):
+              sel=None, capture_lock=None):
     """The whole steady-state vil frame (the reference's _vil_frame_program,
     pipeline.py:110-172): vil_front_end (tracker, lidar odometry, extrinsic
     glue, depth association), then estimator.fused_full_step (IMU segment,
     feature ingest, keyframe decision, triangulation, BA, marginalization,
-    slide). A plain function: the reference compiles it into one program.
+    slide). The estimator's step is one CUDA graph on the card
+    (fused_full_step, captured with `capture_lock` held); the front end runs
+    eagerly. The reference compiles the whole frame into one program.
 
     acc_b, gyr_b (imu_cap, 3), dt_b (imu_cap - 1,) are the padded IMU
     segment on the device and n_imu its host sample count
@@ -203,11 +216,11 @@ def vil_frame(tracker_state: trk.TrackerState, lidar_state: lo.MapState,
     outputs and front vil_front_end's."""
     tracker_state, lidar_state, front = vil_front_end(
         tracker_state, lidar_state, img, pts, val, t, fe, frame_index, generator, sel)
-    window, feats, pre, lidarc, prior, out = est_mod.fused_full_step(
-        window, feats, pre, lidarc, prior, acc_b, gyr_b, dt_b, n_imu,
-        front["ids"], front["xy"], front["vel"], front["depth"], front["tsh"],
-        front["q_imu"], front["p_imu"], torch.ones((), dtype=torch.bool, device=img.device),
-        True, ecfg)
+    with GLOBAL_TIMERS.timed("estimator"):
+        window, feats, pre, lidarc, prior, out = est_mod.fused_full_step(
+            window, feats, pre, lidarc, prior, acc_b, gyr_b, dt_b, n_imu,
+            front["ids"], front["xy"], front["vel"], front["depth"], front["tsh"],
+            front["q_imu"], front["p_imu"], True, True, ecfg, capture_lock=capture_lock)
     return tracker_state, lidar_state, window, feats, pre, lidarc, prior, out, front
 
 
@@ -347,8 +360,9 @@ class VILFusionPipeline:
     frame. With sync_depth=N, steady frames are issued (`_issue_frame`) and
     completed N frames later (`_complete_frame`), their results copied to
     the host in between; the cold start and the window's filling run
-    synchronously. The port's fused estimator step still reads its keyframe
-    decision on the host each frame (VILEstimator.process_frame_device_async).
+    synchronously. The fused estimator step selects its marginalization by
+    the keyframe decision on the device, and the frame's uploads wait for
+    nothing, so a steady frame's estimator is enqueued without a host wait.
 
     visual_loop=True adds the visual loop closure (models/visual_loop.py):
     keyframe BRIEF / BoW detection, PnP verification, the 4-DoF graph and
@@ -438,6 +452,7 @@ class VILFusionPipeline:
             # worker and of the main thread's synchronous frames
             self._vl_lock = threading.Lock()
             self._vl_step_lock = threading.Lock()
+            self.estimator.capture_lock = self._vl_step_lock
             self._vl_jobs: Optional[queue.Queue] = None
             self._vl_results: queue.Queue = queue.Queue()
             self._vl_idle = threading.Event()
@@ -470,6 +485,9 @@ class VILFusionPipeline:
     def _new_estimator(self) -> est_mod.VILEstimator:
         est = est_mod.VILEstimator(self.est_cfg, device=self.device)
         est.set_extrinsics(qic=self.rig.q_ic, tic=self.rig.t_ic, td=self.rig.td)
+        # the visual-loop worker enqueues on the same device: no graph capture
+        # beside its steps
+        est.capture_lock = getattr(self, "_vl_step_lock", None)
         return est
 
     # ------------------------------------------------------------------
@@ -589,14 +607,13 @@ class VILFusionPipeline:
         dequantized on the device; float points pass through."""
         if getattr(pts, "dtype", None) == np.int16:
             n = pts.shape[0]
-            return _dequant_scan(torch.from_numpy(pts).to(self.device),
-                                 torch.from_numpy(val).to(self.device),
+            return _dequant_scan(_upload(pts, self.device), _upload(val, self.device),
                                  self.scan_quant, n)
-        return (torch.as_tensor(np.asarray(pts), dtype=torch.float32).to(self.device),
-                torch.as_tensor(np.asarray(val), dtype=torch.bool).to(self.device))
+        return (_upload(np.asarray(pts, np.float32), self.device),
+                _upload(np.asarray(val, bool), self.device))
 
     def _image_dev(self, img):
-        img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        img_dev = _upload(img, self.device)
         return img_dev.to(torch.float32) if img_dev.dtype == torch.float64 else img_dev
 
     # ------------------------------------------------------------------
@@ -664,9 +681,8 @@ class VILFusionPipeline:
     def _imu_for_frame(self, t):
         """The frame's padded IMU segment on the device and its host count."""
         acc_b, gyr_b, dt_b, n_imu = self.estimator._pack_imu(*self._imu_segment_for_frame(t))
-        f32 = dict(dtype=torch.float32, device=self.device)
-        return (torch.as_tensor(acc_b, **f32), torch.as_tensor(gyr_b, **f32),
-                torch.as_tensor(dt_b, **f32), n_imu)
+        return (_upload(acc_b, self.device), _upload(gyr_b, self.device),
+                _upload(dt_b, self.device), n_imu)
 
     def _try_process(self):
         if self.mode == "lidar":
@@ -838,8 +854,8 @@ class VILFusionPipeline:
             # quantized scans upload raw (int16 + packed bits), vil_frame
             # dequantizes on the device and returns the f32 cloud
             if getattr(pts, "dtype", None) == np.int16:
-                pts_dev = torch.from_numpy(pts).to(self.device)
-                val_dev = torch.from_numpy(val).to(self.device)
+                pts_dev = _upload(pts, self.device)
+                val_dev = _upload(val, self.device)
             else:
                 pts_dev, val_dev = self._scan_dev(pts, val)
             acc_b, gyr_b, dt_b, n_imu = self._imu_for_frame(t)
@@ -849,7 +865,7 @@ class VILFusionPipeline:
                 self.tracker_state, self.lidar_state, est.window, est.feats, est.pre,
                 est.lidar, est.prior, img_dev, pts_dev, val_dev, acc_b, gyr_b, dt_b, n_imu,
                 t, self.fe, self.est_cfg, frame_index=self.lidar_frames,
-                generator=self.generator)
+                generator=self.generator, capture_lock=est.capture_lock)
         self.tracker_frames += 1
         self.lidar_frames += 1
         est.fused_steps += 1
@@ -875,7 +891,8 @@ class VILFusionPipeline:
         """Deferred host-side half of a frame: wait for its copies, then
         failure handling, global fusion, the visual loop, outputs."""
         if rec["event"] is not None:
-            rec["event"].synchronize()
+            with GLOBAL_TIMERS.timed("frame_wait"):  # the host's one wait of the frame
+                rec["event"].synchronize()
         host = [h.numpy() for h in rec["fetch"]]
         p_est, q_est, v_est = host[0], host[1], host[2]
         if rec["gen"] == self._gen:

@@ -1,0 +1,245 @@
+"""CUDA graphs of the port's pure steps: the counterpart of the reference's
+`jax.jit` (models/estimator.py:279, `static_argnames=("cfg",)`).
+
+`step(name, fn, args, static)` runs the pure function `fn(*args)` of
+tensors and (Named)tuples / dicts of tensors as one captured CUDA graph,
+keyed on (name, `static`, the arguments' structure, shapes, dtypes and
+device) as the jit keys on its static arguments and shapes. The first call
+with a key captures:
+
+  * the arguments are cloned into static buffers (a Python number becomes a
+    0-d int32 / float32 / bool tensor);
+  * a few eager calls on a side stream warm the step up (the kernels'
+    builds, cuBLAS / cuSOLVER handles, functorch, `host_constant`s); the
+    step is pure, so their outputs are dropped and no state changes;
+  * one call is captured (`capture_error_mode="thread_local"`), holding
+    `lock` where another thread enqueues on the same device.
+
+Every call, the first included, copies its arguments into the static
+buffers (`copy_`, or `fill_` for a number), replays the graph and returns
+clones of the outputs. Copying on every call means that host code may
+rebind the state between calls (a restart, a relocalization's gauge
+transform, a checkpoint's restore) without telling anyone; cloning means
+that no output aliases a buffer the next replay overwrites, so snapshots
+and frames in flight keep their values. A failed capture raises: there is
+no eager fallback.
+
+Kernel wrappers count their launches through `record_launch`: while this
+thread captures, a launch is recorded and counted again at each replay of
+the graph (the replay launches it), else it is counted at once.
+`host_constant` gives a step the tensors it would otherwise copy from host
+data on every call (a blocking copy on a CUDA device, and not allowed while
+capturing): made once per (values, dtype, device).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+import time
+from contextlib import nullcontext
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+count_lock = threading.Lock()  # kernel wrappers update their launch counts under it
+_tls = threading.local()
+
+# replays by step name, and the capture record of every captured step
+replays: dict = {}
+captures: list = []
+_steps: dict = {}
+_steps_lock = threading.Lock()
+
+
+def record_launch(count: Callable, *args):
+    """A kernel wrapper's launch count, `count(*args)`: recorded while this
+    thread captures a graph through `step` (and counted at each replay),
+    else counted now."""
+    rec = getattr(_tls, "capturing", None)
+    if rec is not None and torch.cuda.is_current_stream_capturing():
+        rec.append((count, args))
+    else:
+        count(*args)
+
+
+def _freeze(x):
+    if isinstance(x, np.ndarray):
+        x = x.tolist()
+    if isinstance(x, (list, tuple)):
+        return tuple(_freeze(v) for v in x)
+    return float(x) if isinstance(x, (np.floating, float)) else x
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def host_constant(values, dtype, device) -> torch.Tensor:
+    """The tensor of the host `values` (a number, a nested tuple / list, a
+    numpy array) as `dtype` on `device`, made at the first call for these
+    (values, dtype, device) and shared by every later one. Callers read it
+    and never write it."""
+    return _constant(_freeze(values), dtype, torch.device(device))
+
+
+# -- flattening of the arguments and outputs -----------------------------------
+
+def _flatten(x, leaves: list):
+    """The structure of x (hashable) with its leaves appended to `leaves`:
+    tuples, NamedTuples, lists and dicts are containers, anything else a leaf."""
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_flatten(v, leaves) for v in x))
+    if isinstance(x, dict):
+        return (dict, tuple(x.keys()), tuple(_flatten(v, leaves) for v in x.values()))
+    leaves.append(x)
+    return None
+
+
+def _unflatten(spec, it):
+    if spec is None:
+        return next(it)
+    if spec[0] is dict:
+        return dict(zip(spec[1], (_unflatten(s, it) for s in spec[2])))
+    kind, kids = spec
+    vals = [_unflatten(s, it) for s in kids]
+    if kind in (tuple, list):
+        return kind(vals)
+    return kind(*vals)  # a NamedTuple
+
+
+_NUMBER_DTYPES = {bool: torch.bool, int: torch.int32, float: torch.float32}
+
+
+def _signature(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device)
+    if type(x) in _NUMBER_DTYPES:
+        return type(x)
+    raise TypeError(f"graphs.step takes tensors and numbers as leaves, got {type(x)}")
+
+
+def _graph_nodes(graph) -> Optional[dict]:
+    """Nodes of a captured graph by type (kernel, memcpy, memset, other),
+    through libcuda's cuGraphGetNodes; None where this torch does not
+    keep the graph."""
+    try:
+        raw = graph.raw_cuda_graph()
+    except (AttributeError, RuntimeError):
+        return None
+    drv = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n)) != 0:
+        return None
+    nodes = (ctypes.c_void_p * n.value)()
+    if drv.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(n)) != 0:
+        return None
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}
+    out = {"total": int(n.value)}
+    t = ctypes.c_int(0)
+    for node in nodes:
+        drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        k = kinds.get(t.value, "other")
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+class CapturedStep:
+    """fn(*args) captured once as a CUDA graph and replayed (module
+    docstring). `stats`: warm-up, capture and instantiation seconds and the
+    graph's nodes by type."""
+
+    def __init__(self, name: str, fn: Callable, args: tuple, warmup: int = 2,
+                 lock=None):
+        leaves: list = []
+        self.spec = _flatten(args, leaves)
+        devs = {x.device for x in leaves if isinstance(x, torch.Tensor)}
+        if len(devs) != 1 or next(iter(devs)).type != "cuda":
+            raise ValueError(f"graphs.step({name!r}) needs its tensors on one CUDA device, "
+                             f"got {devs}")
+        self.name = name
+        self.device = next(iter(devs))
+        self.static = [x.clone() if isinstance(x, torch.Tensor)
+                       else torch.full((), x, dtype=_NUMBER_DTYPES[type(x)], device=self.device)
+                       for x in leaves]
+        self.launches = []
+        self._lock = threading.Lock()
+        static_args = _unflatten(self.spec, iter(self.static))
+        with torch.cuda.device(self.device), (lock if lock is not None else nullcontext()):
+            t0 = time.perf_counter()
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for _ in range(warmup):
+                    fn(*static_args)
+            main.wait_stream(side)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            try:
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+            except TypeError:
+                graph = torch.cuda.CUDAGraph()
+            _tls.capturing = []
+            try:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    out = fn(*static_args)
+            finally:
+                self.launches, _tls.capturing = _tls.capturing, None
+            t2 = time.perf_counter()
+            nodes = _graph_nodes(graph)
+            if hasattr(graph, "instantiate"):
+                graph.instantiate()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        self.graph = graph
+        out_leaves: list = []
+        self.out_spec = _flatten(out, out_leaves)
+        self.out = out_leaves
+        self.stats = dict(name=name, warmup_s=t1 - t0, warmup_calls=warmup, capture_s=t2 - t1,
+                          instantiate_s=t3 - t2, nodes=nodes)
+
+    def __call__(self, *args):
+        leaves: list = []
+        if _flatten(args, leaves) != self.spec:
+            raise ValueError(f"graphs.step({self.name!r}): arguments of another structure")
+        with self._lock:
+            for s, x in zip(self.static, leaves):
+                if isinstance(x, torch.Tensor):
+                    if x.device != self.device:
+                        raise ValueError(f"graphs.step({self.name!r}): an argument on {x.device}")
+                    s.copy_(x)
+                else:
+                    s.fill_(x)
+            self.graph.replay()
+            for count, a in self.launches:
+                count(*a)
+            out = [o.clone() if isinstance(o, torch.Tensor) else o for o in self.out]
+        with count_lock:
+            replays[self.name] = replays.get(self.name, 0) + 1
+        return _unflatten(self.out_spec, iter(out))
+
+
+def step(name: str, fn: Callable, args: tuple, static=(), lock=None):
+    """fn(*args) through its CUDA graph, captured at the first call for this
+    (name, static, argument signature): returns fresh output tensors.
+    `static` holds what fn closes over and the graph depends on (the
+    reference's static arguments); `lock` is held while capturing."""
+    leaves: list = []
+    spec = _flatten(args, leaves)
+    key = (name, static, spec, tuple(_signature(x) for x in leaves))
+    with _steps_lock:
+        cs = _steps.get(key)
+        if cs is None:
+            cs = CapturedStep(name, fn, args, lock=lock)
+            _steps[key] = cs
+            captures.append(cs.stats)
+    return cs(*args)
+
+
+def reset_counts():
+    """Set the replay counts to 0 (the captured graphs stay)."""
+    with count_lock:
+        replays.clear()
