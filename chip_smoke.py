@@ -23,10 +23,11 @@ Phases, any failure exits non-zero:
      exact search inside the radius, with the share of blocks skipped; the
      dense/sparse crossover (K1, K2, K3 at the default and the 4x map
      capacities) and hash kNN against K1; the symmetric eigensolver
-     (csrc/eigh.cu, the marginalization's eigh) against torch.linalg.eigh
-     and float64 at the estimator's 15 and 157 on matrices like its own
-     (full rank, rank-deficient like a prior, repeated eigenvalues, column
-     scales over 11 decades), and the prior's J^T J and J^T r0 it gives;
+     (csrc/eigh.cu, the marginalization's eigh: the warp Jacobi at 15, the
+     block Householder + QL at 157) against torch.linalg.eigh and float64
+     on matrices like the estimator's own (full rank, rank-deficient like a
+     prior, repeated eigenvalues, column scales over 11 decades), timed in
+     turns with torch.linalg.eigh, and the prior's J^T J and J^T r0 it gives;
   4. path "dense": VILFusionPipeline(mode="lidar") at KITTI HDL-64 scale
      (64 x 1800 = 115,200-point scans, 16,384 / 32,768-point maps, default
      global fusion), 5 warm-up + 40 timed scans at 10 Hz, then
@@ -49,12 +50,14 @@ Phases, any failure exits non-zero:
      fused estimator step on every steady frame, each one a replay of its
      CUDA graph (the replay count equals the steady frames), K1 / K2
      launched as the odometry and the depth association plan them each
-     frame, the eigensolver four times a steady frame, the end error within
+     frame, the eigensolver four times a steady frame (twice on each of its
+     kernels), the end error within
      its bound; every steady step's graph result bit for bit the eager
      body's on the same inputs (both keyframe decisions among them), one
      replay under torch.cuda.set_sync_debug_mode("error"), the step's host
      launches counted by torch.profiler, the marginalization's own matrices
-     through the kernel and torch.linalg.eigh; then a cold start on
+     through the kernels and torch.linalg.eigh (and timed in turns); with
+     --save-window PATH the final window is saved there; then a cold start on
      tests/test_e2e_loop.py's
      rig (240 x 320, 32 x 600 scans, LoopTrajectory, no visual loop) that
      must initialize within its frame cap and never restart;
@@ -101,7 +104,7 @@ Phases, any failure exits non-zero:
      steps of the exact kNN (K2); (c) knn_sharded, detect_loop_sharded and
      optimize_sharded at world size 1 over NCCL against knn_exact,
      detect_loop (2,048 slots) and ba.optimize on phase 7's window after
-     its first 19 frames;
+     its 34 frames;
      (d) the same three on 4 spawned ranks over gloo with CUDA tensors on
      the one card against (c); (e) preintegrate(parallel=True) against the
      sequential loop with host ms and device kernels of each.
@@ -161,13 +164,14 @@ MIN_LIVE, MIN_TRACKED_MEAN, MIN_TRACKED = 100, 100, 50
 # path vil: warm-up covers the window's filling (the estimator's first fused
 # step is frame K - 1 = 10) and a few steady frames
 VIL_WARMUP, VIL_TIMED = 14, 20
-# phase 12's sharded BA takes phase 7's window after this many frames: the
-# window it has been held on since it was written (19 frames). On the
-# window after all 34 frames the 4 gloo ranks' LM lands 1.29e-3 from the
-# one-rank LM's cost (892.60 against 893.76), beyond tests/test_parallel.py's
-# rtol 1e-3: its accept / reject path flips on that weaker window (PERF.md,
-# section 7)
-SHARDED_WINDOW_FRAMES = 19
+# phase 12's sharded BA takes phase 7's window after this many frames (all
+# of them). On such a weak window another reduction order can flip an LM
+# accept / reject: one earlier eigensolver's window put the 4 gloo ranks
+# 1.29e-3 from the one-rank LM (rtol 1e-3); on the window this eigensolver
+# gives they land 3.1e-4 from it on the CPU, and the JAX package's sharded
+# LM equals its one-device LM there (tools/jax_sharded_window.py, PERF.md
+# section 6)
+SHARDED_WINDOW_FRAMES = 34
 IMU_RATE = 200.0
 # end-position bound of the vil path: VIL_REF_END_ERR_M is the JAX
 # package's own end error over the same 34 frames on the CPU
@@ -181,9 +185,10 @@ VIL_END_ERR_BOUND_M = 4.0
 # float64: both are backward-stable float32 solvers, each within ~5 n ulps
 # of max|S| of the exact eigenvalues (cuSOLVER's syevd lands 4.3e-5 to
 # 5.7e-5 from float64 at n = 157-172 on an H100, PERF.md), so the two
-# within 1e-4 of max|S| of each other, the kernel within 2e-5 of float64;
+# within 1e-4 of max|S| of each other, the kernel (float64 arithmetic on
+# float32 storage) within 2e-5 of float64;
 # its V diag(S) V^T within 2e-5 of max|A| and V^T V within 2e-5 of I
-# (~1,500 rotations a column, each an ulp of random error); the prior it
+# (a few hundred rotations a column, each an ulp of random error); the prior it
 # gives to test_torch_marginalization.py's tolerances (J^T J within 1e-4 of
 # the largest entry of the quadratic, J^T r0 within 1e-3)
 EIGH_SIZES = (15, 157)
@@ -242,8 +247,9 @@ def _card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of fn() in milliseconds."""
+def _time_ms(fn, reps: int = 20, warmup: int = 3, samples: list | None = None) -> float:
+    """Median CUDA-event time of fn() in milliseconds (each call's time
+    also appended to `samples`, when given)."""
     import torch
 
     for _ in range(warmup):
@@ -257,6 +263,8 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    if samples is not None:
+        samples.extend(times)
     times.sort()
     return times[len(times) // 2]
 
@@ -1116,30 +1124,57 @@ def _eigh_check(label, A, S, V, S_plain):
     return e_plain
 
 
+def _eigh_turns(A, reps: int = 20):
+    """CUDA-event times (ms) of csrc/eigh.cu and torch.linalg.eigh on A in
+    turns: kernel, library, library, kernel, `reps` calls a turn. Returns
+    ({who: median of its 2 x reps calls}, {who: [each turn's median]})."""
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda as ec
+
+    samples = {"kernel": [], "library": []}
+    turns = {"kernel": [], "library": []}
+    for who in ("kernel", "library", "library", "kernel"):
+        fn = ec.eigh if who == "kernel" else ec.eigh_plain
+        turns[who].append(_time_ms(lambda: fn(A), reps=reps, samples=samples[who]))
+    return {k: sorted(v)[len(v) // 2] for k, v in samples.items()}, turns
+
+
+def _eigh_bound(n: int):
+    """(bound_ms, bound_by) of one n x n eigendecomposition: the larger of
+    9 n^3 float32 operations at the FP32 peak and 2 n^2 x 4 B at the HBM
+    peak."""
+    t_ops = 9 * n ** 3 / PEAK_FP32_FLOPS * 1e3
+    t_bytes = 2 * n * n * 4 / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def _eigh_phase(dev):
-    """Phase 3, the eigensolver: csrc/eigh.cu against torch.linalg.eigh (its
-    plain version, and the one PyTorch call of the same function) and
-    float64 at the estimator's sizes on `_eigh_cases`, the batched launch,
-    and marginalization._quadratic_to_factor on the card against
+    """Phase 3, the eigensolver: csrc/eigh.cu's two kernels (the warp
+    Jacobi at 15, the block Householder + QL at 157) against
+    torch.linalg.eigh (their plain version, and the one PyTorch call of the
+    same function) and float64 at the estimator's sizes on `_eigh_cases`,
+    the work each matrix took, the batched launch, and
+    marginalization._quadratic_to_factor on the card against
     test_torch_marginalization.py's invariants; CUDA-event times of kernel
-    and torch.linalg.eigh beside the bound max(9 n^3 float32 operations,
-    2 n^2 x 4 B). Returns the kernels line's record."""
+    and torch.linalg.eigh in turns beside the bound max(9 n^3 float32
+    operations, 2 n^2 x 4 B). Returns the kernels line's records, "eigh"
+    (157) and "eigh warp" (15)."""
     import numpy as np
     import torch
 
     from vil_fusion_tpu_torch.models import marginalization as marg
     from vil_fusion_tpu_torch.ops.cuda import eigh_cuda as ec
 
-    shapes, err, sweeps = {}, 0.0, {}
+    shapes, err, work = {}, {}, {}
     for n in EIGH_SIZES:
+        err[n] = 0.0
         for name, M in _eigh_cases(n, n).items():
             A = torch.tensor(M, dtype=torch.float32, device=dev)
-            sw = torch.zeros(1, dtype=torch.int32, device=dev)
-            S, V = ec.eigh(A, sweeps=sw)
+            st = torch.zeros(1, ec.NSTATS, dtype=torch.int32, device=dev)
+            S, V = ec.eigh(A, stats=st)
             S_plain, _ = ec.eigh_plain(A)
             torch.cuda.synchronize()
-            err = max(err, _eigh_check(f"{n} x {n} {name}", A, S, V, S_plain))
-            sweeps[f"{n} {name}"] = int(sw.item())
+            err[n] = max(err[n], _eigh_check(f"{n} x {n} {name}", A, S, V, S_plain))
+            work[f"{n} {name}"] = st[0].tolist()
         # a batch of the four in one launch: each matrix as alone, bit for bit
         batch = torch.stack([torch.tensor(M, dtype=torch.float32, device=dev)
                              for M in _eigh_cases(n, n).values()])
@@ -1149,16 +1184,18 @@ def _eigh_phase(dev):
             if not (torch.equal(Sb[b], S1) and torch.equal(Vb[b], V1)):
                 raise AssertionError(f"eigh {n}: batched launch differs from a single one")
         A = torch.tensor(_eigh_cases(n, n)["rank n/2"], dtype=torch.float32, device=dev)
-        ms = _time_ms(lambda: ec.eigh(A))
-        plain_ms = _time_ms(lambda: ec.eigh_plain(A))
-        t_ops = 9 * n ** 3 / PEAK_FP32_FLOPS * 1e3
-        t_bytes = 2 * n * n * 4 / PEAK_BYTES_PER_S * 1e3
-        bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        shapes[str(n)] = dict(shape=f"{n}x{n}", ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                              bound_by=bound[1], library_ms=plain_ms)
-        print(f"  eigh {n} x {n}: kernel {ms:.4f} ms, torch.linalg.eigh {plain_ms:.4f} ms, bound "
+        med, turns = _eigh_turns(A)
+        bound = _eigh_bound(n)
+        shapes[str(n)] = dict(shape=f"{n}x{n}", ms=med["kernel"], plain_ms=med["library"],
+                              bound_ms=bound[0], bound_by=bound[1], library_ms=med["library"],
+                              turns=turns)
+        print(f"  eigh {n} x {n} rank n/2: kernel {med['kernel']:.4f} ms, torch.linalg.eigh "
+              f"{med['library']:.4f} ms (each turn's median: {turns}), bound "
               f"{bound[0]:.7f} ms by {bound[1]} (CUDA-event medians)", flush=True)
-    print(f"  eigh sweeps: {sweeps}", flush=True)
+    print(f"  eigh work a matrix (eigh_cuda.eigh stats: at 157 QL iterations, rotations, SM "
+          f"clocks until the tridiagonal / Q / the last rotation / the end, the producer's "
+          f"clocks waiting and in its chains; at 15 Jacobi sweeps, rotations, the end's "
+          f"clocks): {work}", flush=True)
     # the prior's factorization through the kernel (test_torch_marginalization.py's
     # test_quadratic_to_factor_invariants: rank 30 of 40; and a prior-sized one)
     rng = np.random.default_rng(0)
@@ -1175,18 +1212,27 @@ def _eigh_phase(dev):
               f"{e_jr:.3e} of max|g|", flush=True)
         if not (e_jj <= 1e-4 and e_jr <= 1e-3):
             raise AssertionError(f"eigh prior {m}: J^T J / J^T r0 outside 1e-4 / 1e-3")
-    main = shapes[str(EIGH_SIZES[-1])]
-    return dict(name="eigh sym_eigh", route="cuda", source="vil_fusion_tpu_torch/csrc/eigh.cu",
-                replaces="vil_fusion_tpu/models/marginalization.py:35 (XLA eigh, also :48; "
-                         "not a Pallas kernel)",
-                max_abs_err=err, shape=main["shape"], ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"], launches_per_call=1, shapes=shapes,
-                sweeps=sweeps)
+    replaces = ("vil_fusion_tpu/models/marginalization.py:{} (XLA eigh in {}; not a Pallas "
+                "kernel)")
+    records = {}
+    for key, n, kernel, where in (
+            ("eigh", EIGH_SIZES[-1], "hhql_eigh_kernel (Householder + QL, one block a matrix)",
+             (35, "_quadratic_to_factor")),
+            ("eigh warp", EIGH_SIZES[0], "jacobi_warp_kernel (Jacobi, one warp a matrix)",
+             (48, "_schur_eliminate"))):
+        sh = shapes[str(n)]
+        records[key] = dict(
+            name=f"{key} sym_eigh: {kernel}", route="cuda",
+            source="vil_fusion_tpu_torch/csrc/eigh.cu", replaces=replaces.format(*where),
+            max_abs_err=err[n], shape=sh["shape"], ms=sh["ms"], plain_ms=sh["plain_ms"],
+            bound_ms=sh["bound_ms"], bound_by=sh["bound_by"], library_ms=sh["library_ms"],
+            launches_per_call=1, turns=sh["turns"],
+            work={k: v for k, v in work.items() if k.startswith(f"{n} ")})
+    return records
 
 
 def _counts(kc):
-    """Launch counts of the seven kernels since the last _reset (K1 and K2:
+    """Launch counts of the eight kernels since the last _reset (K1 and K2:
     unbatched launches of the expanded form; no path launches a batched
     call in the difference form)."""
     from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
@@ -1197,7 +1243,9 @@ def _counts(kc):
             - kc.knn_exact.launches_batched,
             "K3": kc.knn_sparse.launches,
             "K1 diff": kc.knn_grouped.launches_diff, "K2 diff": kc.knn_exact.launches_diff,
-            "Morton keys": kc.morton_keys.launches, "eigh": eigh_cuda.eigh.launches}
+            "Morton keys": kc.morton_keys.launches,
+            "eigh": eigh_cuda.eigh.launches - eigh_cuda.eigh.launches_warp,
+            "eigh warp": eigh_cuda.eigh.launches_warp}
 
 
 def _reset(kc):
@@ -1380,16 +1428,19 @@ def _front_end_path(frames, images, dev, card):
     return counts
 
 
-def _vil_path(frames, images, dev, card, sync_depth=0):
+def _vil_path(frames, images, dev, card, sync_depth=0, save_window=None):
     """Phase 7 (sync_depth=0) and phase 8 (sync_depth=2, the bench's
     deployment configuration): VILFusionPipeline(mode="vil") over `frames` +
     `images` with 200 Hz IMU from the oracle initial state. With
     sync_depth > 0 every steady frame must be issued (_issue_frame) and
     completed (_complete_frame) sync_depth frames later. Every steady frame
     must replay the estimator's graph; at sync_depth 0 every steady step is
-    recorded and checked after the run (`_graph_checks`). Returns (launch
-    counts of the run, timed frames/s, the per-frame positions, the
-    estimator state after SHARDED_WINDOW_FRAMES frames)."""
+    recorded and checked after the run (`_graph_checks`). With
+    `save_window`, the final window is saved there (state_io.to_numpy,
+    torch.save). Returns (launch counts of the run, timed frames/s, the
+    per-frame positions, the estimator state after SHARDED_WINDOW_FRAMES
+    frames, the eigensolver's times on the final window's matrices or
+    None)."""
     import numpy as np
     import torch
 
@@ -1442,12 +1493,12 @@ def _vil_path(frames, images, dev, card, sync_depth=0):
                 torch.cuda.synchronize()
                 GLOBAL_TIMERS.reset()
                 t0 = time.perf_counter()
-            n_eigh = _counts(kc)["eigh"]
+            n_eigh = _counts(kc)["eigh"] + _counts(kc)["eigh warp"]
             _vil_frame(pipe, i, fr, img, imu, name, kc, per_frame, keys)
             if i == SHARDED_WINDOW_FRAMES - 1:
                 e = pipe.estimator  # its tensors are never written in place
                 window_state = (e.window, e.feats, e.pre, e.lidar, e.prior)
-            eigh_frame.append(_counts(kc)["eigh"] - n_eigh)
+            eigh_frame.append(_counts(kc)["eigh"] + _counts(kc)["eigh warp"] - n_eigh)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     finally:
@@ -1459,19 +1510,30 @@ def _vil_path(frames, images, dev, card, sync_depth=0):
     est = pipe.estimator
     window_state = window_state or (est.window, est.feats, est.pre, est.lidar, est.prior)
     n_steady = len(frames) - (window.K - 1)
-    # the eigensolver: 4 launches a step (2 a marginalization path, both run),
-    # each replay and each eager warm-up call of a new capture
-    want_eigh = 4 * (replays + sum(c["warmup_calls"] for c in new))
+    # the eigensolver: 4 launches a step (a marginalization path's 157 x 157 on
+    # the block kernel and 15 x 15 on the warp kernel; both paths run), each
+    # replay and each eager warm-up call of a new capture
+    want_eigh = 2 * (replays + sum(c["warmup_calls"] for c in new))
     print(f"  {name}: the estimator's graph replayed {replays} times for {n_steady} steady "
-          f"frames; captures in this run {new}; eigh launches {counts['eigh']} (want "
-          f"{want_eigh}), per frame {eigh_frame}", flush=True)
-    if replays != n_steady or est.fused_steps != n_steady or counts["eigh"] != want_eigh:
+          f"frames; captures in this run {new}; eigh launches {counts['eigh']} (block) + "
+          f"{counts['eigh warp']} (warp) (want {want_eigh} each), per frame {eigh_frame}",
+          flush=True)
+    if (replays != n_steady or est.fused_steps != n_steady or counts["eigh"] != want_eigh
+            or counts["eigh warp"] != want_eigh):
         raise AssertionError(f"{name}: {replays} graph replays, {est.fused_steps} fused steps, "
-                             f"{counts['eigh']} eigh launches for {n_steady} steady frames")
-    if steps:
-        _graph_checks(name, steps, est, card)
+                             f"{counts['eigh']} + {counts['eigh warp']} eigh launches for "
+                             f"{n_steady} steady frames")
+    eigh_times = _graph_checks(name, steps, est, card) if steps else None
+    if save_window:
+        from vil_fusion_tpu_torch.utils import state_io
+
+        Path(save_window).parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: state_io.to_numpy(getattr(est, k))
+                    for k in ("window", "feats", "pre", "lidar", "prior")}, save_window)
+        print(f"  {name}: the window after {len(frames)} frames saved to {save_window}",
+              flush=True)
     return _vil_report(name, pipe, frames, issued, completed, keys, per_frame, counts, dt,
-                       sync_depth, card, dev) + (window_state,)
+                       sync_depth, card, dev) + (window_state, eigh_times)
 
 
 def _leaves(x):
@@ -1495,7 +1557,8 @@ def _graph_checks(name, steps, est, card):
     torch.cuda.set_sync_debug_mode("error"); each marginalization path's
     device time alone (a graph each: the device select's cost); the final window's two
     marginalizations: every matrix they hand the eigensolver through the
-    kernel against torch.linalg.eigh and float64 (`_eigh_check`), and each
+    kernel against torch.linalg.eigh and float64 (`_eigh_check`), a 15 x 15
+    and a 157 x 157 of them timed through both in turns (returned), and each
     prior's factorization against its quadratic: J^T J within 1e-4 of the
     largest entry of Lam and J^T r0 within 1e-3 of g's
     (test_quadratic_to_factor_invariants), or within twice the plain
@@ -1620,6 +1683,17 @@ def _graph_checks(name, steps, est, card):
         S, V = sym_eigh(A)
         _eigh_check(f"{name} window matrix {n} ({A.shape[0]} x {A.shape[0]})", A, S, V,
                     torch.linalg.eigh(A)[0])
+    # the kernels' time on the window's own matrices (marginalize_old's 15 and 157)
+    eigh_times = {}
+    for A in mats:
+        key = f"window {A.shape[0]}x{A.shape[0]}"
+        if key not in eigh_times:
+            med, turns = _eigh_turns(A.contiguous())
+            eigh_times[key] = dict(ms=med["kernel"], library_ms=med["library"], turns=turns)
+    print(f"  {name}: eigh on the final window's matrices, kernel / torch.linalg.eigh ms "
+          f"(CUDA-event medians in turns): " + ", ".join(
+              f"{k} {v['ms']:.4f} / {v['library_ms']:.4f}" for k, v in eigh_times.items())
+          + f" [{card}]", flush=True)
     marg.sym_eigh = torch.linalg.eigh
     try:
         plain = priors(state)
@@ -1649,6 +1723,7 @@ def _graph_checks(name, steps, est, card):
         print(f"  {name}: the final window's {what} against float64 (not gated), J^T J / J^T r0 "
               f"of their largest entries: " + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}"
                                                          for k, v in e.items()), flush=True)
+    return eigh_times
 
 
 def _vil_frame(pipe, i, fr, img, imu, name, kc, per_frame, keys):
@@ -1841,7 +1916,8 @@ def _loop_path(dev, card, frame=None):
         f"{k} {v['mean_ms']:.2f} / {v['p50_ms']:.2f} / {v['n']}" for k, v in stages.items()),
         flush=True)
     print(f"  loop: the estimator's graph replayed {replays} times for "
-          f"{pipe.estimator.fused_steps} steady frames; eigh launches {counts['eigh']}",
+          f"{pipe.estimator.fused_steps} steady frames; eigh launches {counts['eigh']} (block) "
+          f"+ {counts['eigh warp']} (warp)",
           flush=True)
     bad = loop_gates(r, LOOP_FRAMES)
     if replays != pipe.estimator.fused_steps or not replays:
@@ -2587,8 +2663,17 @@ def _preint_phase(dev, card):
                 kernels_parallel=kernels[True], kernels_sequential=kernels[False])
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
+    ap.add_argument("--save-window", metavar="PATH", default=None,
+                    help="also save phase 7's estimator window after all its frames "
+                         "(utils/state_io.to_numpy of window, feats, pre, lidar, prior; "
+                         "torch.save) to PATH")
+    args = ap.parse_args(argv)
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2611,14 +2696,15 @@ def main() -> int:
     n_procs = max(1, min(6, (os.cpu_count() or 2) - 2))
     pool = multiprocessing.get_context("spawn").Pool(n_procs)
     try:
-        return _phases(card, dev, kc, pool, n_procs, t_start)
+        return _phases(card, dev, kc, pool, n_procs, t_start, args.save_window)
     finally:
         pool.terminate()
         pool.join()
 
 
-def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
-    """Phases 2-12 of main(), the simulator's frames made in `pool`."""
+def _phases(card, dev, kc, pool, n_procs, t_start, save_window=None) -> int:
+    """Phases 2-12 of main(), the simulator's frames made in `pool`;
+    `save_window`: where phase 7 saves its final window (or None)."""
     import numpy as np
     import torch
 
@@ -2651,7 +2737,7 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
     # phase 3: kernels against their plain versions
     print(f"kernels: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
     records = _kernel_phase(frames, dev)
-    records["eigh"] = _eigh_phase(dev)
+    records.update(_eigh_phase(dev))
     launches = {k: {} for k in records}
 
     def add(path, counts):
@@ -2714,14 +2800,17 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
 
     # phase 7: the whole vil frame, then the cold start
     print(f"path vil: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
-    counts, fps_sync, vio_sync, est_state = _vil_path(frames[:n_vil], images[:n_vil], dev, card)
+    counts, fps_sync, vio_sync, est_state, window_eigh = _vil_path(
+        frames[:n_vil], images[:n_vil], dev, card, save_window=save_window)
+    for key, n in (("eigh", EIGH_SIZES[-1]), ("eigh warp", EIGH_SIZES[0])):
+        records[key]["window"] = window_eigh[f"window {n}x{n}"]
     add("vil", counts)
     add("cold start", _cold_start(dev, lap))
 
     # phase 8: the same frames at sync_depth=2 (the deferred path)
     print(f"path deferred: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
-    counts, fps_deferred, vio_deferred, _ = _vil_path(frames[:n_vil], images[:n_vil], dev, card,
-                                                      sync_depth=2)
+    counts, fps_deferred, vio_deferred, _, _ = _vil_path(frames[:n_vil], images[:n_vil], dev,
+                                                         card, sync_depth=2)
     add("deferred", counts)
     print(f"  deferred: frames/s sync_depth=0 {fps_sync:.3f}, sync_depth=2 {fps_deferred:.3f}; "
           f"largest distance between the two trajectories "
@@ -2766,7 +2855,8 @@ def _phases(card, dev, kc, pool, n_procs, t_start) -> int:
                "K2 densify": ("loop",),
                "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",),
                "Morton keys": ("sparse",), "K1 batched": ("batched",),
-               "K2 batched": ("batched exact",), "eigh": ("vil", "deferred", "loop")}
+               "K2 batched": ("batched exact",), "eigh": ("vil", "deferred", "loop"),
+               "eigh warp": ("vil", "deferred", "loop")}
     for kname, rec in records.items():
         rec["launches_by_path"] = launches[kname]
         rec["launches"] = sum(launches[kname].values())

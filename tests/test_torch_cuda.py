@@ -8,10 +8,12 @@ steps, the
 deferred pipeline (sync_depth=2) on the card against the CPU, the Schur
 solve's Cholesky fallback on the card, the device raycaster against itself
 on the CPU, a KITTI odometry replay into a pipeline on the card, the
-symmetric eigensolver kernel (csrc/eigh.cu) against torch.linalg.eigh and
-float64, and the estimator's captured step (utils/graphs.py) against its
-eager body: over a sequence with both keyframe decisions, after the state
-is rebound, with no sync, without aliasing its outputs.
+symmetric eigensolver kernels (csrc/eigh.cu) against torch.linalg.eigh,
+float64 and their numpy mirror (tests/torch_eigh_reference.py), and a graph
+capture of them against an eager call, and the estimator's captured step
+(utils/graphs.py) against its eager body: over a sequence with both keyframe
+decisions, after the state is rebound, with no sync, without aliasing its
+outputs.
 
 Imports torch and numpy only (a CUDA machine need not have jax). Every
 test needs a card and skips without one. Where jax is not installed, skip
@@ -766,9 +768,9 @@ def _eigh_case(n, case, seed):
 @pytest.mark.parametrize("n", [1, 2, 15, 157, 172])
 def test_cuda_eigh_matches_plain(cuda_device, n, case):
     """csrc/eigh.cu against torch.linalg.eigh and float64 at the
-    estimator's sizes (15, 157), the largest it takes (172, V^T in global
-    memory) and the smallest: eigenvalues ascending, within 1e-4 of max|S|
-    of torch.linalg.eigh's and 2e-5 of float64's, V diag(S) V^T within
+    estimator's sizes (15 on the warp kernel, 157 on the block kernel), the
+    largest it takes (172) and the smallest: eigenvalues ascending, within
+    1e-4 of max|S| of torch.linalg.eigh's and 2e-5 of float64's, V diag(S) V^T within
     2e-5 of max|A|, V^T V within 2e-5 of I; one launch counted; the same
     matrices in one batched launch give each one's result bit for bit."""
     from vil_fusion_tpu_torch.ops import linalg
@@ -793,6 +795,58 @@ def test_cuda_eigh_matches_plain(cuda_device, n, case):
     for b in range(3):
         S1, V1 = eigh_cuda.eigh(batch[b])
         assert torch.equal(Sb[b], S1) and torch.equal(Vb[b], V1)
+
+
+@pytest.mark.parametrize("case", ["full rank", "rank n/2", "repeated", "wide range"])
+@pytest.mark.parametrize("n", [15, 157, 172])
+def test_cuda_eigh_matches_mirror(cuda_device, n, case):
+    """csrc/eigh.cu against its numpy mirror (tests/torch_eigh_reference.py:
+    the same stages in the same precisions, the sums in another order) on
+    the same matrix: eigenvalues within 2e-5 of max|S| of the mirror's, the
+    kernel's V diag(S) V^T within 2e-5 of max|A| of the mirror's (the
+    eigenvectors of a cluster may take another basis), and the work, (QL
+    iterations, rotations) or (Jacobi sweeps, rotations), within 25% of the
+    mirror's; the launch counted on the kernel of its size."""
+    from torch_eigh_reference import eigh as mirror_eigh
+
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+
+    M = _eigh_case(n, case, n).astype(np.float32)
+    A = torch.tensor(M, device=cuda_device)
+    stats = torch.zeros(1, eigh_cuda.NSTATS, dtype=torch.int32, device=cuda_device)
+    warp0 = eigh_cuda.eigh.launches_warp
+    S, V = eigh_cuda.eigh(A, stats=stats)
+    assert eigh_cuda.eigh.launches_warp == warp0 + (n <= eigh_cuda.WARP_MAX_N)
+    w, Vm, work = mirror_eigh(M)
+    S, V = S.double().cpu().numpy(), V.double().cpu().numpy()
+    smax = np.abs(w).max()
+    assert np.abs(S - w).max() <= EIGH_TOL_F64 * smax
+    Vm = Vm.astype(np.float64)
+    R, Rm = (V * S) @ V.T, (Vm * w) @ Vm.T
+    assert np.abs(R - Rm).max() <= EIGH_TOL_RECON * np.abs(M).max()
+    got = stats[0, :2].tolist()
+    for g, m in zip(got, work):
+        assert abs(g - m) <= 0.25 * m, (got, work)
+
+
+@pytest.mark.parametrize("n", [15, 157])
+def test_cuda_eigh_graph_replay_equals_eager(cuda_device, n):
+    """A torch.cuda.CUDAGraph captured around the kernel replays, on a new
+    matrix copied into its input, bit for bit what an eager call gives."""
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+
+    A = torch.tensor(_eigh_case(n, "full rank", n), dtype=torch.float32, device=cuda_device)
+    eigh_cuda.eigh(A)  # build and opt into the shared memory outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        S_g, V_g = eigh_cuda.eigh(A)
+    B = torch.tensor(_eigh_case(n, "rank n/2", n + 1), dtype=torch.float32, device=cuda_device)
+    A.copy_(B)
+    g.replay()
+    S, V = eigh_cuda.eigh(B)
+    torch.cuda.synchronize()
+    assert torch.equal(S_g, S) and torch.equal(V_g, V)
 
 
 def test_cuda_eigh_refuses(cuda_device):
@@ -856,7 +910,7 @@ def test_cuda_graph_step_equals_body(gpu_sequence):
     decisions) replayed its graph, and each replay's outputs equal the eager
     body's on the same inputs bit for bit (the step has no atomics: two
     eager runs are identical); the eigensolver's launches are counted at
-    each replay, 4 a step."""
+    each replay, 4 a step, 2 of them on the warp kernel."""
     from vil_fusion_tpu_torch.models import estimator as est_mod
     from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
     from vil_fusion_tpu_torch.utils import graphs
@@ -870,9 +924,11 @@ def test_cuda_graph_step_equals_body(gpu_sequence):
         keys.append(bool(out[5]["is_key"]))
     assert any(keys) and not all(keys)
     r0, e0 = graphs.replays.get("fused_full_step", 0), eigh_cuda.eigh.launches
+    w0 = eigh_cuda.eigh.launches_warp
     a, kw, out = steps[-1]
     again = est_mod.fused_full_step(*a, **kw)
     assert graphs.replays["fused_full_step"] == r0 + 1 and eigh_cuda.eigh.launches == e0 + 4
+    assert eigh_cuda.eigh.launches_warp == w0 + 2  # the two 15 x 15 Schur blocks
     for x, y in zip(_leaves(again), _leaves(out)):
         assert torch.equal(x, y)
 

@@ -8,8 +8,8 @@ removeBackShiftDepth, feature_manager.cpp:292-339).
 
 The Hessian assembly reuses ba's factor blocks; the Schur complement and the
 (J, r0) re-factorization are two symmetric eigendecompositions of small
-dense matrices (ops/linalg.sym_eigh: the Jacobi kernel of csrc/eigh.cu on
-the card, torch.linalg.eigh on the CPU). Eigenvectors carry an arbitrary sign
+dense matrices (ops/linalg.sym_eigh: the kernels of csrc/eigh.cu on the
+card, torch.linalg.eigh on the CPU). Eigenvectors carry an arbitrary sign
 and, for equal eigenvalues, an arbitrary basis, so what other code may rely
 on is J^T J and J^T r0, never J itself. Nothing here writes its inputs.
 """

@@ -174,8 +174,9 @@ def smallest_eigvec_inverse_iteration(A, iters: int = 4, shift: float = 1e-6):
 def sym_eigh(A):
     """(eigenvalues ascending, eigenvectors as columns) of the symmetric
     float32 A (..., n, n), from its lower triangle: on a CUDA tensor the
-    Jacobi kernel of csrc/eigh.cu (ops/cuda/eigh_cuda.eigh, n <= 172), which
-    never waits for the device; on the CPU its plain version,
+    kernels of csrc/eigh.cu (ops/cuda/eigh_cuda.eigh, n <= 172: a warp
+    Jacobi up to 32, Householder + QL above), which never wait for the
+    device; on the CPU their plain version,
     torch.linalg.eigh. Eigenvectors of either carry an arbitrary sign (and
     basis, for a repeated eigenvalue)."""
     if A.device.type == "cpu":
