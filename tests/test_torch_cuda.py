@@ -10,10 +10,11 @@ solve's Cholesky fallback on the card, the device raycaster against itself
 on the CPU, a KITTI odometry replay into a pipeline on the card, the
 symmetric eigensolver kernels (csrc/eigh.cu) against torch.linalg.eigh,
 float64 and their numpy mirror (tests/torch_eigh_reference.py), and a graph
-capture of them against an eager call, and the estimator's captured step
+capture of them against an eager call, the estimator's captured step
 (utils/graphs.py) against its eager body: over a sequence with both keyframe
 decisions, after the state is rebound, with no sync, without aliasing its
-outputs.
+outputs, and a small vil pipeline's stage graphs and frame graph (the
+reference's jits) replay by replay against their eager bodies.
 
 Imports torch and numpy only (a CUDA machine need not have jax). Every
 test needs a card and skips without one. Where jax is not installed, skip
@@ -205,8 +206,9 @@ def test_cuda_vmap_rule_is_one_launch(cuda_device, grouped):
 def test_cuda_batched_odometry_matches_single(cuda_device):
     """odometry_step_batched on the card (S = 3, 16 x 360 scans, K1): one K1
     launch a call over the three sequences (as many as one sequence's step
-    makes), every step's poses within 1e-4 m of odometry_step on each
-    sequence from the same state (the batched state's row)."""
+    makes, a steady single step replaying its graph), every step's poses
+    within 1e-4 m of odometry_step on each sequence from the same state
+    (the batched state's row)."""
     from vil_fusion_tpu_torch.models import lidar_features as lf
     from vil_fusion_tpu_torch.models import lidar_odometry as lo
     from vil_fusion_tpu_torch.runtime import sim
@@ -223,16 +225,21 @@ def test_cuda_batched_odometry_matches_single(cuda_device):
     val = torch.from_numpy(np.stack([[v for _, v in r] for r in scans]))
     pts, val = pts.to(cuda_device), val.to(cuda_device)
     states = lo.init_state_batched(cfg, 3, device=cuda_device)
+    from vil_fusion_tpu_torch.utils import graphs
+
     for f in range(4):
         before = kc.knn_grouped.launches
         prev = states
         states, out = lo.odometry_step_batched(states, pts[f], val[f], cfg, frame_count=f)
         batched = kc.knn_grouped.launches - before
         for s in range(3):
-            before = kc.knn_grouped.launches
+            before, n_cap = kc.knn_grouped.launches, len(graphs.captures)
             _, o = lo.odometry_step(lo.MapState(*(a[s] for a in prev)), pts[f, s], val[f, s], cfg,
                                     frame_count=f)
-            assert batched == kc.knn_grouped.launches - before
+            single = kc.knn_grouped.launches - before
+            if len(graphs.captures) > n_cap:  # the step's graph captured: its warm-up calls
+                single //= 1 + graphs.captures[-1]["warmup_calls"]  # launched as much each
+            assert batched == single
             for a, b in zip(out, o):
                 torch.testing.assert_close(a[s], b, atol=1e-4, rtol=0)
 
@@ -463,7 +470,8 @@ def test_cuda_front_end_matches_cpu(cuda_device):
     40 tracks its hypotheses' inlier counts nearly tie and the winner then
     depends on the device's rounding): feature ids equal, pixels within
     0.05 px, lidar pose within 5e-3 m, depth flags equal on 95% of the
-    features; K1 and K2 (k=3) launched."""
+    features; K1 and K2 (k=3) launched, K2 once a frame (replays of the
+    glue + depth association graph) besides a capture's warm-up calls."""
     from vil_fusion_tpu_torch.models import lidar_odometry as lo
     from vil_fusion_tpu_torch.models import tracker as trk
     from vil_fusion_tpu_torch.runtime import pipeline as pl
@@ -479,11 +487,13 @@ def test_cuda_front_end_matches_cpu(cuda_device):
         image_height=H, image_width=W, q_ic=sim.R_to_q(r_bc), t_ic=np.zeros(3),
         q_cl=sim.R_to_q(r_bc.T), t_cl=np.zeros(3), max_cnt=40, min_dist=12, n_scan=16,
         lidar_fov_up=15.0, lidar_fov_down=-15.0, lidar_min_range=1.0, lidar_max_range=80.0)
+    from vil_fusion_tpu_torch.utils import graphs
+
     odom = dict(edge_map_cap=2048, surf_map_cap=4096, edge_cap=256, surf_cap=1024)
     scene = sim.RaycastScene()
     traj = sim.Trajectory(sim.TrajectoryConfig(speed=4.0))
     results = []
-    k1, k2 = kc.knn_grouped.launches, kc.knn_exact.launches
+    k1, k2, n_cap = kc.knn_grouped.launches, kc.knn_exact.launches, len(graphs.captures)
     for dev in ("cpu", cuda_device):
         fe = pl.front_end_config(rig, f_cap=64, odom_overrides=odom, device=dev)
         fe = fe._replace(tcfg=fe.tcfg._replace(ransac=False))
@@ -502,7 +512,10 @@ def test_cuda_front_end_matches_cpu(cuda_device):
                                            torch.from_numpy(val).to(dev), t, fe, frame_index=k)
             outs.append({n: v.cpu().numpy() for n, v in out.items()})
         results.append(outs)
-    assert kc.knn_grouped.launches - k1 >= 2 and kc.knn_exact.launches - k2 == 3
+    # one K2 a frame on the card, and one in each warm-up call of the glue +
+    # depth association graph where it was captured here
+    warm = sum(c["warmup_calls"] for c in graphs.captures[n_cap:] if c["name"] == "glue_depth")
+    assert kc.knn_grouped.launches - k1 >= 2 and kc.knn_exact.launches - k2 == 3 + warm
     assert kc.knn_exact.last_call == (64, 16 * 900, 3)
     for a, b in zip(*results):
         np.testing.assert_array_equal(b["ids"], a["ids"])
@@ -907,7 +920,8 @@ def _body(a):
 
 def test_cuda_graph_step_equals_body(gpu_sequence):
     """Every steady step of the sequence (9 frames, both keyframe
-    decisions) replayed its graph, and each replay's outputs equal the eager
+    decisions) went through its graph (the first call of the key runs the
+    body, the others replay), and each step's outputs equal the eager
     body's on the same inputs bit for bit (the step has no atomics: two
     eager runs are identical); the eigensolver's launches are counted at
     each replay, 4 a step, 2 of them on the warp kernel."""
@@ -1053,3 +1067,153 @@ def test_cuda_marginalization_through_the_kernel(gpu_sequence):
                          np.abs(J.T @ r0 - gn).max() / np.abs(gn).max()))
         (jj, jr), (jj_p, jr_p) = errs
         assert jj <= max(1e-4, 2 * jj_p) and jr <= max(1e-3, 2 * jr_p)
+
+
+def _small_vil_rig():
+    """test_cuda_deferred_pipeline_matches_cpu's rig: 160 x 120 images,
+    16-ring scans, exact kNN, 64 feature slots."""
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+
+    H, W, F = 120, 160, 100.0
+    r_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    return RigConfig(
+        name="small", camera=dict(model_type="PINHOLE",
+                                  projection_parameters=dict(fx=F, fy=F, cx=W / 2, cy=H / 2),
+                                  distortion_parameters=dict(k1=0.0, k2=0.0, p1=0.0, p2=0.0)),
+        image_height=H, image_width=W, q_ic=sim.R_to_q(r_bc), t_ic=np.array([0.1, 0.0, 0.05]),
+        q_cl=sim.R_to_q(r_bc.T), t_cl=np.array([0.0, -0.1, 0.02]), max_cnt=40, min_dist=12,
+        n_scan=16, lidar_fov_up=15.0, lidar_fov_down=-15.0, lidar_min_range=1.0,
+        lidar_max_range=80.0, f_threshold=3.0, rolling_shutter=True, tr=0.02)
+
+
+class _StepRecorder:
+    """graphs.step wrapped: the replays of `names` recorded (name, body,
+    arguments, outputs, the K1 / K2 / eigh launches the replay counted)."""
+
+    def __init__(self, monkeypatch, names):
+        from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+        from vil_fusion_tpu_torch.utils import graphs
+
+        self.calls, step = [], graphs.step
+
+        def counts():
+            return (kc.knn_grouped.launches, kc.knn_exact.launches, eigh_cuda.eigh.launches)
+
+        def rec(name, fn, args, static=(), lock=None):
+            if name not in names or graphs.capturing() or getattr(graphs._tls, "inline", 0):
+                return step(name, fn, args, static, lock)
+            n_cap, c0, r0 = len(graphs.captures), counts(), graphs.replays.get(name, 0)
+            out = step(name, fn, args, static, lock)
+            c1 = counts()
+            if graphs.replays.get(name, 0) > r0:  # not a key's first call (the body)
+                self.calls.append((name, fn, args, out, None if len(graphs.captures) > n_cap
+                                   else tuple(b - a for a, b in zip(c0, c1))))
+            return out
+
+        self.counts = counts
+        monkeypatch.setattr(graphs, "step", rec)
+
+    def check(self):
+        """Each replay against its eager body: outputs bit for bit, the same
+        kernel launches counted."""
+        from vil_fusion_tpu_torch.utils import graphs
+
+        for name, fn, args, out, launched in self.calls:
+            c0 = self.counts()
+            with graphs.inline():
+                ref = fn(*args)
+            eager = tuple(b - a for a, b in zip(c0, self.counts()))
+            assert launched is None or launched == eager, (name, launched, eager)
+            a, b = _leaves(out), _leaves(ref)
+            assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)), name
+
+
+def _small_vil_frames(n, speed=4.0):
+    from vil_fusion_tpu_torch.runtime import sim
+
+    H, W, F = 120, 160, 100.0
+    r_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    scene = sim.RaycastScene()
+    traj = sim.Trajectory(sim.TrajectoryConfig(speed=speed))
+    out = []
+    for i in range(n):
+        t = 1.0 + 0.1 * i
+        R, pos = traj.rotation(t), traj.position(t) + np.array([0, 0, 1.5])
+        img = (np.clip(sim.render_camera_image(scene, R @ r_bc, pos, F, F, W / 2, H / 2, H, W),
+                       0, 1) * 255).astype(np.uint8)
+        pts, val = sim.simulate_lidar_scan(scene, R, pos, n_scan=16, width=900, fov_up_deg=15.0,
+                                           fov_down_deg=-15.0, max_range=80.0, seed=i)
+        out.append((t, img, pts, val, sim.simulate_imu(traj, t - 0.1, t, 200.0) if i else None))
+    return traj, out
+
+
+@pytest.mark.parametrize("sync_depth", [0, 2])
+def test_cuda_frame_graphs_equal_eager(cuda_device, monkeypatch, sync_depth):
+    """VILFusionPipeline(mode="vil") on the card over 14 frames of the small
+    rig with the tracker's RANSAC on: at sync_depth 0 every frame calls
+    the stage graphs (the tracker's from frame 1, the odometry's from frame
+    3, glue + depth association on all) and each steady frame the
+    estimator's too; at sync_depth 2 a steady frame is one call of the
+    frame's graph, with no sync from its uploads to its async copies
+    (set_sync_debug_mode("error") after the capture). A call replays, but
+    for a key's first, which runs the body (the frame's body then calls the
+    estimator's step). Every replay equals its eager body bit for bit and
+    counts the K1 / K2 / eigh launches the body makes."""
+    from vil_fusion_tpu_torch.models import global_fusion as gf
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+    from vil_fusion_tpu_torch.utils import graphs
+
+    names = ("track_step", "odometry_step", "glue_depth", "vil_frame")
+    rec = _StepRecorder(monkeypatch, names)
+    pipe = VILFusionPipeline(
+        _small_vil_rig(), mode="vil", f_cap=64, sync_depth=sync_depth, scan_quant=0.0025,
+        device=cuda_device,
+        odom_overrides=dict(edge_map_cap=2048, surf_map_cap=4096, edge_cap=256, surf_cap=1024,
+                            approx_knn=False),
+        gf_cfg=gf.GlobalFusionConfig(node_capacity=64, loop_capacity=8, cloud_capacity=512,
+                                     submap_half_span=3))
+    traj, frames = _small_vil_frames(14)
+    q0, p0 = traj.pose(1.0)
+    pipe.estimator.set_initial_state(p=p0 + np.array([0, 0, 1.5]), q=q0, v=traj.velocity(1.0))
+    issue = pipe._issue_frame
+
+    def issue_checked(*a):
+        if "vil_frame" not in graphs.replays:  # the first steady frame captures
+            return issue(*a)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return issue(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    pipe._issue_frame = issue_checked
+    graphs.reset_counts()
+
+    def calls():  # replays, and first calls of a key (their bodies run)
+        return {k: graphs.replays.get(k, 0) + graphs.eager_calls.get(k, 0)
+                for k in set(graphs.replays) | set(graphs.eager_calls)}
+
+    for i, (t, img, pts, val, imu) in enumerate(frames):
+        if imu is not None:
+            pipe.push_imu_batch(imu[0][1:], imu[1][1:], imu[2][1:])
+        before, body0 = calls(), graphs.eager_calls.get("vil_frame", 0)
+        pipe.push_scan(t, pts.copy(), val.copy())
+        pipe.push_image(t, img)
+        delta = {k: v - before.get(k, 0) for k, v in calls().items() if v != before.get(k, 0)}
+        if i < 10:
+            want = {k: 1 for k, first in (("track_step", 1), ("odometry_step", 3),
+                                          ("glue_depth", 0)) if i >= first}
+        elif sync_depth:
+            want = {"vil_frame": 1}
+            if graphs.eager_calls.get("vil_frame", 0) > body0:  # the body ran, step inside
+                want["fused_full_step"] = 1
+        else:
+            want = {"track_step": 1, "odometry_step": 1, "glue_depth": 1, "fused_full_step": 1}
+        assert delta == want, (i, delta)
+    pipe.finalize()
+    assert pipe.restarts == 0 and pipe.estimator.fused_steps == 4
+    if sync_depth:  # a key's first call runs the body, the second captures
+        assert graphs.replays.get("vil_frame", 0) >= 3
+    assert len(rec.calls) == sum(n for k, n in graphs.replays.items() if k in names)
+    rec.check()

@@ -2,6 +2,7 @@
 """Where a frame of the PyTorch port spends its time on the card.
 
     python3 tools/profile_port.py [--path dense|sparse|front|vil|loop] [--frames 6]
+                                  [--sync-depth 0|2]
 
 Runs the path of chip_smoke.py of that name (same rig, scans, images, IMU
 and configuration) for 8 warm-up frames (14 for vil: the estimator's window
@@ -17,9 +18,13 @@ frame and its share of that wall time (the device's busy share), kernel
 launches per frame (a CUDA graph's replay counts as one launch, its
 kernels as device time), launches, host waits and copies per frame inside each
 GLOBAL_TIMERS stage (the visual-loop worker's jobs are the stage
-"visual_loop"; the trace covers every thread), the kNN kernels' share of the
-device time, and the ten kernels with the most device time. Needs one
-NVIDIA card; prints the card's name and power limit first.
+"visual_loop"; the trace covers every thread), the CUDA graphs replayed per
+frame by name and the kernels' launches per frame as their wrappers count
+them (a replay counts the launches its graph holds), the kNN kernels' share
+of the device time, and the ten kernels with the most device time.
+`--sync-depth 2` runs the vil path deferred (a steady frame one replay of
+the frame's graph). Needs one NVIDIA card; prints the card's name and power
+limit first.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ WARMUP_VIL = 14
 WARMUP_LOOP = 40
 
 
-def _stepper(path: str, n: int, dev):
+def _stepper(path: str, n: int, dev, sync_depth: int = 0):
     """A function step(i) that processes frame i of `path`, after set-up."""
     import numpy as np
     import torch
@@ -87,7 +92,7 @@ def _stepper(path: str, n: int, dev):
         traj = sim.Trajectory(sim.TrajectoryConfig(speed=8.0))
         imus = [None] + [sim.simulate_imu(traj, fr[0] - cs.FRAME_DT, fr[0], cs.IMU_RATE)
                          for fr in frames[1:]]
-        pipe = pl.VILFusionPipeline(cs._rig(), mode="vil", sync_depth=0,
+        pipe = pl.VILFusionPipeline(cs._rig(), mode="vil", sync_depth=sync_depth,
                                     scan_quant=cs.SCAN_QUANT, device=dev)
         q0, p0 = traj.pose(frames[0][0])
         pipe.estimator.set_initial_state(p=p0 + np.array([0.0, 0.0, 1.5]), q=q0,
@@ -97,7 +102,8 @@ def _stepper(path: str, n: int, dev):
             if imus[i] is not None:
                 pipe.push_imu_batch(imus[i][0][1:], imus[i][1][1:], imus[i][2][1:])
             pipe.push_scan(frames[i][0], frames[i][1], frames[i][2])
-            return pipe.push_image(frames[i][0], images[i])  # reads the frame's pose
+            # reads the frame's pose (sync_depth 0) or the one sync_depth frames back
+            return pipe.push_image(frames[i][0], images[i])
 
         return step_vil
     fe = pl.front_end_config(cs._rig(), scan_quant=cs.SCAN_QUANT, device=dev)
@@ -151,6 +157,8 @@ def main() -> int:
     ap.add_argument("--path", choices=("dense", "sparse", "front", "vil", "loop"),
                     default="dense")
     ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--sync-depth", type=int, default=0, help="vil path: the pipeline's "
+                    "sync_depth (2: the deferred path, one frame graph a steady frame)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -159,15 +167,23 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     n = args.frames
     warmup = dict(vil=WARMUP_VIL, loop=WARMUP_LOOP).get(args.path, WARMUP)
-    step = _stepper(args.path, warmup + 2 * n, dev)
+    step = _stepper(args.path, warmup + 2 * n, dev, args.sync_depth)
     for i in range(warmup):
         step(i)
     torch.cuda.synchronize()
+    from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
+    from vil_fusion_tpu_torch.utils import graphs
+
+    cs._reset(kc)
     t0 = time.perf_counter()
     for i in range(warmup, warmup + n):
         step(i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"  graph replays per frame: {({k: v / n for k, v in graphs.replays.items()})} "
+          f"(steps that ran their body: {graphs.eager_calls}); kernel launches per frame "
+          f"counted by the wrappers (replays included): "
+          f"{({k: v / n for k, v in cs._counts(kc).items() if v})}", flush=True)
     try:  # trace the visual-loop worker's thread too
         cfg = dict(experimental_config=torch._C._profiler._ExperimentalConfig(
             profile_all_threads=True))

@@ -281,13 +281,13 @@ def fused_full_step(window: WindowState, feats: FeatureStore, pre: StackedPreint
     bool). Nothing is read on the host.
 
     On a CUDA device (and cfg.ba.sharded False) the step replays its CUDA
-    graph (utils/graphs.step), captured at the first call for this (cfg,
-    run_ba, argument shapes) with `capture_lock` held; the outputs are fresh
-    tensors. Elsewhere it runs `_fused_full_step_body` eagerly: on the CPU,
+    graph (utils/graphs.step), captured at the second call for this (cfg,
+    run_ba, argument shapes) with `capture_lock` held (the first runs the
+    body); the outputs are fresh tensors. Elsewhere it runs `_fused_full_step_body` eagerly: on the CPU,
     and with the sharded BA, whose collectives a graph cannot hold."""
     args = (window, feats, pre, lidar, prior, acc_b, gyr_b, dt_b, n_imu, ids_b, xy_b, vel_b,
             dep_b, tsh_b, lidar_q_rel, lidar_p_rel, lidar_valid)
-    if window.p.is_cuda and not cfg.ba.sharded:
+    if not cfg.ba.sharded and graphs.use_graph(window.p):
         body = functools.partial(_fused_full_step_body, run_ba=run_ba, cfg=cfg)
         return graphs.step("fused_full_step", body, args, static=(run_ba, cfg),
                            lock=capture_lock)

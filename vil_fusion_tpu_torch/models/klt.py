@@ -158,25 +158,37 @@ def track_pyramidal(img1, img2, pts, valid, win_radius: int = 10, iters: int = 1
     return guess, status
 
 
-def ransac_sample(valid, n_hyp: int, generator=None):
+N_HYP = 128  # hypotheses of the tracker's RANSAC (the reference's n_hyp)
+
+
+def ransac_uniforms(n: int, n_hyp: int = N_HYP, generator=None, device=None):
+    """The RANSAC's draw: (n_hyp, n) uniform numbers in [0, 1) from
+    `generator` (a torch.Generator on `device`, or the global generator),
+    as the reference draws jax.random.uniform(key, (n_hyp, N)). Made outside
+    a captured step and passed in (a graph cannot hold the generator)."""
+    return torch.rand((n_hyp, n), generator=generator, device=device)
+
+
+def ransac_sample(valid, n_hyp: int, generator=None, u=None):
     """(n_hyp, 8) sample indices: biased random permutations, valid points
-    first (uniform numbers from `generator`, a torch.Generator on the
-    tensors' device, or the global generator)."""
-    n = valid.shape[0]
-    u = torch.rand((n_hyp, n), generator=generator, device=valid.device)
+    first, from the uniforms `u` (n_hyp, N) or, when None, a draw of
+    `ransac_uniforms` from `generator`."""
+    if u is None:
+        u = ransac_uniforms(valid.shape[0], n_hyp, generator, valid.device)
     order = torch.argsort(u - 10.0 * valid[None, :].to(u.dtype), dim=1)
     return order[:, :8]
 
 
-def ransac_fundamental(x1, x2, valid, generator=None, sel=None, n_hyp: int = 128,
-                       thresh_px: float = 1.0, focal: float = 460.0):
+def ransac_fundamental(x1, x2, valid, generator=None, sel=None, n_hyp: int = N_HYP,
+                       thresh_px: float = 1.0, focal: float = 460.0, u=None):
     """Batched 8-point RANSAC on normalized-plane coordinates x1, x2 (N, 2);
     returns (inlier_mask (N,), best_F (3, 3)). Fixed hypothesis count +
     argmax instead of adaptive early exit.
 
-    The samples come from `generator` (see ransac_sample) unless `sel`
-    (n_hyp, 8) gives them: the reference draws with another generator, so a
-    comparison against it hands both the same indices."""
+    The samples come from the uniforms `u` or from `generator` (see
+    ransac_sample) unless `sel` (n_hyp, 8) gives them: the reference draws
+    with another generator, so a comparison against it hands both the same
+    uniforms or indices."""
     N = x1.shape[0]
     dtype = x1.dtype
     dev = x1.device
@@ -184,7 +196,7 @@ def ransac_fundamental(x1, x2, valid, generator=None, sel=None, n_hyp: int = 128
     p1 = x1 * focal
     p2 = x2 * focal
     if sel is None:
-        sel = ransac_sample(valid, n_hyp, generator)
+        sel = ransac_sample(valid, n_hyp, generator, u)
     a1 = p1[sel]  # (B, 8, 2)
     a2 = p2[sel]
 
@@ -232,5 +244,6 @@ def ransac_fundamental(x1, x2, valid, generator=None, sel=None, n_hyp: int = 128
     d2 = num / torch.clamp(den, min=1e-12)  # (B, N)
     inl = (d2 < thresh_px ** 2) & valid[None, :]
     counts = torch.sum(inl, dim=1)
-    best = torch.argmax(counts)  # the first of equal counts
-    return inl[best], Fm[best]
+    best = torch.argmax(counts).reshape(1)  # the first of equal counts
+    # a gather (indexing by a 0-d tensor would read it on the host)
+    return inl.index_select(0, best)[0], Fm.index_select(0, best)[0]

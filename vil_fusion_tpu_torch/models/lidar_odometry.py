@@ -7,14 +7,18 @@ sparse_knn=True; a hash-table lookup with use_hash_knn=True), closed-form
 line/plane fits, and n_outer association passes x n_inner damped
 Gauss-Newton steps on one SE(3) block; optional two-pass scan deskew.
 
-Runs eagerly. The reference's `lax.cond`s on device values become host
-branches: `odometry_step` takes the frame count as a host integer (the
-pipeline keeps a host mirror, so no frame reads the device); the first
-frame, the warm/cold choice of the later association passes and deskew's
-drop of frame 0 from the maps are Python `if`s on it.
+The reference jits `odometry_step` (lidar_odometry.py:353); on the card
+the port replays a steady step as a CUDA graph (utils/graphs.step) keyed on
+the configuration and the branches below. The reference's `lax.cond`s on
+device values become host branches: `odometry_step` takes the frame count
+as a host integer (the pipeline keeps a host mirror, so no frame reads the
+device); the first frame, the warm/cold choice of the later association
+passes and deskew's drop of frame 0 from the maps are Python `if`s on
+`branches(frame_count, cfg)`.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,6 +31,7 @@ from vil_fusion_tpu_torch.ops import voxel as voxel_ops
 from vil_fusion_tpu_torch.ops.cuda import knn_cuda as knn_ops  # CUDA kernels on the card, plain on CPU
 from vil_fusion_tpu_torch.ops.linalg import (gram3, solve_spd_unrolled, sym3x3_principal,
                                              sym3x3_smallest)
+from vil_fusion_tpu_torch.utils import graphs
 
 
 class OdomConfig(NamedTuple):
@@ -129,7 +134,7 @@ def edge_correspondences(pts_w, valid, map_pts, d2, idx, cfg: OdomConfig):
     ok = ok & (lam[:, 2] > cfg.edge_eig_ratio * lam[:, 1])
     finite = torch.isfinite(direction).all(dim=-1) & torch.isfinite(centroid).all(dim=-1)
     ok = ok & finite
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=pts_w.dtype, device=pts_w.device)
+    z = graphs.host_constant((0.0, 0.0, 1.0), pts_w.dtype, pts_w.device)
     direction = torch.where(finite[:, None], direction, z)
     centroid = torch.where(finite[:, None], centroid, torch.zeros_like(centroid))
     return centroid, direction, ok
@@ -150,7 +155,7 @@ def surf_correspondences(pts_w, valid, map_pts, d2, idx, cfg: OdomConfig):
     # sanitize: 0 * NaN would poison the masked Hessian reduction
     finite = torch.isfinite(n_hat).all(dim=-1) & torch.isfinite(d_off)
     ok = ok & finite
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=pts_w.dtype, device=pts_w.device)
+    z = graphs.host_constant((0.0, 0.0, 1.0), pts_w.dtype, pts_w.device)
     n_hat = torch.where(finite[:, None], n_hat, z)
     d_off = torch.where(finite, d_off, torch.zeros_like(d_off))
     return n_hat, d_off, ok
@@ -284,14 +289,44 @@ def _update_maps(state: MapState, feats: LidarFeatures, q, p, cfg: OdomConfig):
     return edge_map, edge_valid, surf_map, surf_valid, origin
 
 
+class Branches(NamedTuple):
+    """The host mirrors of the reference's conds on state.frame_count."""
+    register: bool  # frame_count > 0: scan-to-map (lidar_odometry.py:383)
+    warm: bool  # frame_count >= 3: later passes re-rank pass 1's candidates (:306)
+    drop_first: bool  # deskew and frame_count == 1: frame 0 leaves the maps (:397)
+
+
+def branches(frame_count: int, cfg: OdomConfig) -> Branches:
+    """`odometry_step`'s branches at host frame count `frame_count`."""
+    return Branches(frame_count > 0, frame_count >= 3, cfg.deskew and frame_count == 1)
+
+
+STEADY = Branches(True, True, False)  # every frame from the fourth on
+
+
 def odometry_step(state: MapState, points, valid, cfg: OdomConfig = OdomConfig(),
-                  frame_count: Optional[int] = None):
+                  frame_count: Optional[int] = None, capture_lock=None):
     """One LiDAR frame: returns (new_state, (q, p, q_rel, p_rel)).
 
     `frame_count` is the host mirror of state.frame_count; when None it is
-    read from the device (one synchronisation)."""
+    read from the device (one synchronisation). On the card a steady step
+    (`STEADY`) replays its graph (`graphs.step`, keyed on cfg and the
+    branches, captured with `capture_lock` held); frames 0-2 run
+    `odometry_step_body` eagerly (each key would replay once), as does every
+    CPU step."""
     if frame_count is None:
         frame_count = int(state.frame_count)
+    br = branches(frame_count, cfg)
+    if br == STEADY and graphs.use_graph(points):
+        body = functools.partial(odometry_step_body, cfg=cfg, br=br)
+        return graphs.step("odometry_step", body, (state, points, valid), static=(cfg, br),
+                           lock=capture_lock)
+    return odometry_step_body(state, points, valid, cfg, br)
+
+
+def odometry_step_body(state: MapState, points, valid, cfg: OdomConfig, br: Branches):
+    """odometry_step's pure body at branches `br` (what its graph holds):
+    reads nothing on the host and copies no host data to the device."""
     # constant-velocity prediction
     q_rel0, p_rel0 = lie.pose_between((state.q_prev, state.p_prev), (state.q, state.p))
     q_pred, p_pred = lie.pose_compose((state.q, state.p), (q_rel0, p_rel0))
@@ -301,11 +336,11 @@ def odometry_step(state: MapState, points, valid, cfg: OdomConfig = OdomConfig()
         points = deskew_points(points, valid, q_rel0, p_rel0)
 
     feats = extract_features(points, valid, cfg.lidar)
-    if frame_count > 0:
+    if br.register:
         q_new, p_new = scan_to_map(
             feats, state.edge_map, state.edge_map_valid,
             state.surf_map, state.surf_map_valid, q_pred, p_pred, cfg,
-            state.map_origin, warm=frame_count >= 3)
+            state.map_origin, warm=br.warm)
     else:
         q_new, p_new = state.q, state.p
 
@@ -318,7 +353,7 @@ def odometry_step(state: MapState, points, valid, cfg: OdomConfig = OdomConfig()
                                  valid, cfg.lidar)
         # frame 0 went into the map undeskewed (no motion estimate yet);
         # drop it at frame 1: the map must be uniformly motion-compensated
-        if frame_count == 1:
+        if br.drop_first:
             state = state._replace(
                 edge_map_valid=torch.zeros_like(state.edge_map_valid),
                 surf_map_valid=torch.zeros_like(state.surf_map_valid))
@@ -345,9 +380,9 @@ def odometry_step_batched(states: MapState, points, valid, cfg: OdomConfig = Odo
     serves them all (None reads sequence 0's on the device)."""
     if frame_count is None:
         frame_count = int(states.frame_count[0])
-    return torch.func.vmap(
-        lambda s, p, v: odometry_step(s, p, v, cfg, frame_count=frame_count))(
-            states, points, valid)
+    br = branches(frame_count, cfg)
+    return torch.func.vmap(lambda s, p, v: odometry_step_body(s, p, v, cfg, br))(
+        states, points, valid)
 
 
 def init_state_batched(cfg: OdomConfig, n_seq: int, dtype=torch.float32,

@@ -6,19 +6,26 @@ dynamic-scene variant). Fixed-capacity slot store (cap features); the
 reference's per-frame dynamic vectors are masked tensors, its id counter and
 track lengths live in the state.
 
-Runs eagerly. The reference's `lax.cond` on `state.initialized` is a host
-branch here: `track_step` takes `initialized` as a host bool (callers keep a
-host mirror, so no frame reads the device); when None it is read from the
-device (one synchronisation).
+The reference jits `track_step` (tracker.py:70); on the card the port
+replays it as a CUDA graph (utils/graphs.step), keyed on the camera, the
+configuration, `initialized`, the mask gate and where the RANSAC's samples
+come from. The reference's `lax.cond` on `state.initialized` is a host
+branch here and part of that key: `track_step` takes `initialized` as a
+host bool (callers keep a host mirror, so no frame reads the device); when
+None it is read from the device (one synchronisation). The RANSAC's
+uniform draw (`klt.ransac_uniforms`) is made outside the graph and passed
+in.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from vil_fusion_tpu_torch.models import cameras, klt
 from vil_fusion_tpu_torch.ops import image as im
+from vil_fusion_tpu_torch.utils import graphs
 
 
 class TrackerConfig(NamedTuple):
@@ -76,23 +83,49 @@ def _scatter_rows(base, slot, rows, cap: int):
 
 def track_step(state: TrackerState, img, t, cam, cfg: TrackerConfig,
                dyn_mask: Optional[torch.Tensor] = None, generator=None, sel=None,
-               initialized: Optional[bool] = None):
+               initialized: Optional[bool] = None, u=None, capture_lock=None):
     """One frame: returns (new_state, obs) where obs is a dict with per-slot
     ids/valid/uv pixels/normalized xy/velocity/track_cnt.
 
     Accepts uint8 images and normalizes on the device. `t` is a float or a
-    0-d tensor. `generator` (a torch.Generator on the image's device) or
-    `sel` ((128, 8) sample indices) feed the RANSAC; `dyn_mask` (H, W), True
-    on dynamic objects, feeds the mask gate. `initialized` is the host
-    mirror of state.initialized."""
+    0-d tensor. The RANSAC takes the uniforms `u` ((128, cap), see
+    klt.ransac_uniforms), else a draw from `generator` (a torch.Generator
+    on the image's device) made here, or the sample indices `sel` ((128,
+    8)); `dyn_mask` (H, W), True on dynamic objects, feeds the mask gate.
+    `initialized` is the host mirror of state.initialized.
+
+    On a CUDA image an initialized step replays its graph (`graphs.step`,
+    captured with `capture_lock` held);
+    the first frame, and every CPU step, runs `track_step_body` eagerly (a
+    graph of the first frame would replay once)."""
+    if initialized is None:
+        initialized = bool(state.initialized)
+    if cfg.ransac and sel is None and u is None:
+        u = klt.ransac_uniforms(cfg.cap, klt.N_HYP, generator, img.device)
+    if not isinstance(t, torch.Tensor):
+        t = float(t)
+    args = (state, img, t, dyn_mask if cfg.mask_gate else None, sel, u)
+    if initialized and graphs.use_graph(img):
+        body = functools.partial(track_step_body, cam=cam, cfg=cfg, initialized=True)
+        return graphs.step("track_step", body, args, static=(cam, cfg, True), lock=capture_lock)
+    return track_step_body(*args, cam=cam, cfg=cfg, initialized=initialized)
+
+
+def track_step_body(state: TrackerState, img, t, dyn_mask, sel, u, cam, cfg: TrackerConfig,
+                    initialized: bool):
+    """track_step's pure body (what its graph holds): reads nothing on the
+    host and copies no host data to the device; `t` a number or a 0-d
+    tensor, `sel` / `u` the RANSAC's samples or uniforms (one of them when
+    cfg.ransac), `dyn_mask` None or the mask."""
     if img.dtype == torch.uint8:
         img = img.to(torch.float32) * (1.0 / 255.0)
     dtype = img.dtype
     dev = img.device
     img_p = im.clahe(img) if cfg.use_clahe else img
-    if initialized is None:
-        initialized = bool(state.initialized)
-    t = torch.as_tensor(t, dtype=dtype, device=dev)
+    if isinstance(t, torch.Tensor):
+        t = t.to(dtype)
+    else:  # a fill, not a copy from the host
+        t = torch.full((), t, dtype=dtype, device=dev)
 
     H, W = img.shape
     cap = cfg.cap
@@ -123,7 +156,7 @@ def track_step(state: TrackerState, img, t, cam, cfg: TrackerConfig,
     if cfg.ransac:
         fit_mask = tracked & on_clean  # mask variant: F from clean points only
         inl, Fm = klt.ransac_fundamental(
-            und_prev, und_cur, fit_mask, generator=generator, sel=sel,
+            und_prev, und_cur, fit_mask, sel=sel, u=u,
             thresh_px=cfg.f_thresh_px, focal=cfg.focal)
         n_fit = torch.sum(fit_mask)
         if cfg.mask_gate:

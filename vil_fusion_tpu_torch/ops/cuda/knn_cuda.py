@@ -34,6 +34,7 @@ import torch
 
 from vil_fusion_tpu_torch.ops import knn as knn_plain
 from vil_fusion_tpu_torch.ops.cuda import nvcc
+from vil_fusion_tpu_torch.utils import graphs
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "knn.cu"
 BUILD_DIR, NVCC_FLAGS = nvcc.BUILD_DIR, nvcc.NVCC_FLAGS  # (the tools build older sources)
@@ -65,6 +66,8 @@ morton_keys_plain = knn_plain.morton_keys
 _lib = None
 _scratch_bufs: dict = {}
 _counter_bufs: dict = {}
+# buffers replaced by larger ones: a captured graph may still point at them
+_retired: list = []
 # Threads that launch on one device share its scratch buffers: a call's
 # kernels are enqueued under this lock, so no other call's land between them
 # on the stream. The launch counts below are updated under it too.
@@ -204,26 +207,40 @@ def sparse_scratch_bytes(how: SparsePlan, k: int) -> int:
     return 32 * how.db_tiles + 8 * lists
 
 
+def _grow(bufs: dict, dev: torch.device, what: str, make):
+    """Replace the per-device buffer in `bufs` by `make()`, keeping the old
+    one alive (a graph captured with it still uses it). Refused while this
+    thread captures a graph: the new buffer would come from the graph's
+    private pool (a step's eager warm-up calls size the buffers first)."""
+    if graphs.capturing():
+        raise RuntimeError(f"knn_cuda: the {what} buffer would grow inside a graph capture")
+    if dev in bufs:
+        _retired.append(bufs[dev])
+    bufs[dev] = make()
+    return bufs[dev]
+
+
 def _scratch(dev: torch.device, nbytes: int) -> torch.Tensor:
     """A device buffer of at least `nbytes`, kept per device and grown when
-    too small: K3's tile boxes and lists and the Morton keys' partial
-    minima. The kernels that use it run on the caller's current stream in
-    the order they were enqueued, so one buffer serves them all."""
+    too small (not while capturing: `_grow`): K3's tile boxes and lists and
+    the Morton keys' partial minima. The kernels that use it run on the
+    caller's current stream in the order they were enqueued, so one buffer
+    serves them all."""
     buf = _scratch_bufs.get(dev)
     if buf is None or buf.numel() < nbytes:
-        buf = torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8, device=dev)
-        _scratch_bufs[dev] = buf
+        buf = _grow(_scratch_bufs, dev, "scratch", lambda: torch.empty(
+            max(nbytes, 1 << 16), dtype=torch.uint8, device=dev))
     return buf
 
 
 def _counters(dev: torch.device, n: int) -> torch.Tensor:
     """K3's per-query-tile counts of finished blocks: int32 zeros, kept per
     device (the search kernel leaves them 0) and replaced by zeros when too
-    short."""
+    short (not while capturing: `_grow`)."""
     buf = _counter_bufs.get(dev)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _counter_bufs[dev] = buf
+        buf = _grow(_counter_bufs, dev, "counter", lambda: torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=dev))
     return buf
 
 
@@ -250,7 +267,9 @@ def launch_stage(name: str):
 
 def _count(fn, shape, diff: bool = False, batched: bool = False):
     """One launch of wrapper `fn` at `shape` (Nq, Nd, k), (S, Nq, Nd, k)
-    for a batched launch over S sequences, or (n,)."""
+    for a batched launch over S sequences, or (n,). The wrappers call it
+    through `graphs.record_launch`: inside a captured graph at each replay,
+    under the replaying thread's launch_stage."""
     with _launch_lock:
         fn.launches += 1
         fn.launches_diff += diff
@@ -379,8 +398,9 @@ def _knn_dense_impl(queries, database, db_valid, k, grouped, form, tile):
                   grouped, form)
     shape = (queries.shape[-2], database.shape[-2], k)
     lead = out[0].shape[:-2]
-    _count(knn_grouped if grouped else knn_exact,
-           (math.prod(lead),) + shape if lead else shape, form == "diff", bool(lead))
+    graphs.record_launch(_count, knn_grouped if grouped else knn_exact,
+                         (math.prod(lead),) + shape if lead else shape, form == "diff",
+                         bool(lead))
     return out
 
 
@@ -484,7 +504,7 @@ def _morton_keys_cuda(pts, valid, cell: float):
                                   keys.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vil_morton_keys failed with cudaError {err} (n={n}, cell={cell})")
-    _count(morton_keys, (n,))
+    graphs.record_launch(_count, morton_keys, (n,))
     return keys
 
 
@@ -560,7 +580,7 @@ def _knn_sparse_cuda(queries, database, db_valid, k, radius, q_tile, db_tile, ce
     if err != 0:
         raise RuntimeError(f"vil_knn_sparse failed with cudaError {err} "
                            f"(nq={nq}, nd={nd}, k={k}, db_tile={db_tile}, plan={tuple(how)})")
-    _count(knn_sparse, (nq, nd, k))
+    graphs.record_launch(_count, knn_sparse, (nq, nd, k))
     return out_d, out_i
 
 

@@ -18,12 +18,21 @@ the reference's vil frame program (tracker, lidar odometry, extrinsic glue,
 depth association) and `vil_frame` the whole program with the estimator's
 fused step.
 
+On the card the reference's compiled programs are CUDA graphs
+(utils/graphs.step): a steady `vil_frame` is one graph replay (the
+reference's _vil_frame_program), and the per-stage paths replay one graph
+per reference jit: the tracker, the odometry, the glue with the depth
+association, and the estimator's step. First frames whose branch keys
+differ (the tracker's first frame, odometry frames 0-2) run the same
+bodies eagerly.
+
 Failure handling: the estimator's failureDetection triggers a clearState
 reboot seeded from the LiDAR odometry pose; a camera-stream gap triggers
 the same restart.
 """
 from __future__ import annotations
 
+import functools
 import os
 import queue
 import threading
@@ -39,6 +48,7 @@ from vil_fusion_tpu_torch.models import cameras as cam_mod
 from vil_fusion_tpu_torch.models import depth_association
 from vil_fusion_tpu_torch.models import estimator as est_mod
 from vil_fusion_tpu_torch.models import global_fusion as gf
+from vil_fusion_tpu_torch.models import klt
 from vil_fusion_tpu_torch.models import lidar_features as lf
 from vil_fusion_tpu_torch.models import lidar_odometry as lo
 from vil_fusion_tpu_torch.models import posegraph4dof as pg4
@@ -47,6 +57,7 @@ from vil_fusion_tpu_torch.models.imu import ImuNoise
 from vil_fusion_tpu_torch.ops import lie
 from vil_fusion_tpu_torch.runtime import tum
 from vil_fusion_tpu_torch.runtime.config import RigConfig
+from vil_fusion_tpu_torch.utils import graphs
 from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
 
 
@@ -75,6 +86,25 @@ class FrontEnd(NamedTuple):
     scan_quant: float  # metres per int16 step of a quantized scan
     tsh_scale: float  # rolling-shutter readout time per row (TR / ROW), 0 = global shutter
     min_incidence: float  # strong/weak threshold of the lidar depth
+
+    def extrinsics(self) -> "Extrinsics":
+        """The tensors (a graph's inputs)."""
+        return Extrinsics(self.q_il, self.t_il, self.q_li, self.t_li, self.q_cl, self.t_cl)
+
+    def configs(self) -> tuple:
+        """Everything else (hashable: a graph's key)."""
+        return (self.cam, self.tcfg, self.lcfg, self.scan_quant, self.tsh_scale,
+                self.min_incidence)
+
+
+class Extrinsics(NamedTuple):
+    """FrontEnd's constant extrinsics (what `_glue` reads)."""
+    q_il: torch.Tensor
+    t_il: torch.Tensor
+    q_li: torch.Tensor
+    t_li: torch.Tensor
+    q_cl: torch.Tensor
+    t_cl: torch.Tensor
 
 
 def front_end_config(rig: RigConfig, f_cap: int = 128, mask_gate: bool = False,
@@ -136,25 +166,59 @@ def frame_seed(t: float) -> int:
     return int(np.floor(float(t) * 1e3)) & 0x7FFFFFFF
 
 
+def ransac_uniforms(t: float, tcfg: trk.TrackerConfig, device, generator=None, sel=None):
+    """The frame's RANSAC uniforms (klt.ransac_uniforms), drawn from
+    `generator` reseeded from frame_seed(t) (made on `device` when None);
+    None where the tracker takes the sample indices `sel` or runs no
+    RANSAC."""
+    if sel is not None or not tcfg.ransac:
+        return None
+    if generator is None:
+        generator = torch.Generator(device=device)
+    generator.manual_seed(frame_seed(t))
+    return klt.ransac_uniforms(tcfg.cap, klt.N_HYP, generator, device)
+
+
 def _track(tracker_state: trk.TrackerState, img, t: float, fe: FrontEnd,
-           initialized: Optional[bool], generator=None, sel=None, dyn_mask=None):
-    """Step 1 of the vil frame: the tracker, its RANSAC drawing from
-    `generator` reseeded from frame_seed(t) (made on the image's device when
-    None), or from the sample indices `sel`."""
-    if sel is None:
-        if generator is None:
-            generator = torch.Generator(device=img.device)
-        generator.manual_seed(frame_seed(t))
+           initialized: Optional[bool], generator=None, sel=None, dyn_mask=None,
+           capture_lock=None):
+    """Step 1 of the vil frame: the tracker (its graph on the card once
+    initialized), its RANSAC drawing from `generator` reseeded from
+    frame_seed(t), or from the sample indices `sel`."""
+    u = ransac_uniforms(t, fe.tcfg, img.device, generator, sel)
     return trk.track_step(tracker_state, img, t, fe.cam, fe.tcfg, dyn_mask=dyn_mask,
-                          generator=generator, sel=sel, initialized=initialized)
+                          sel=sel, initialized=initialized, u=u, capture_lock=capture_lock)
 
 
-def _glue(lqr, lpr, pts, fe: FrontEnd):
+def _glue(lqr, lpr, pts, ext: Extrinsics):
     """Step 3: the lidar relative pose through the extrinsics into the IMU
-    frame, and the cloud into the camera frame."""
-    qt, pt = lie.pose_compose((fe.q_il, fe.t_il), (lqr, lpr))
-    q_imu, p_imu = lie.pose_compose((qt, pt), (fe.q_li, fe.t_li))
-    return q_imu, p_imu, lie.qrot(fe.q_cl[None, :], pts) + fe.t_cl[None, :]
+    frame, and the cloud into the camera frame (`ext` an Extrinsics or a
+    FrontEnd)."""
+    qt, pt = lie.pose_compose((ext.q_il, ext.t_il), (lqr, lpr))
+    q_imu, p_imu = lie.pose_compose((qt, pt), (ext.q_li, ext.t_li))
+    return q_imu, p_imu, lie.qrot(ext.q_cl[None, :], pts) + ext.t_cl[None, :]
+
+
+def _glue_depth_body(lqr, lpr, pts, val, xy, valid, ext: Extrinsics, min_incidence: float):
+    """Steps 3-4: the extrinsic glue, then the depth association of the
+    features (xy, valid) on the cloud. Returns (q_imu, p_imu, depth)."""
+    q_imu, p_imu, cloud_cam = _glue(lqr, lpr, pts, ext)
+    depth, _ = depth_association.feature_depth(xy, valid, cloud_cam, val,
+                                               min_incidence=min_incidence)
+    return q_imu, p_imu, depth
+
+
+def glue_depth(lqr, lpr, pts, val, obs: dict, fe: FrontEnd, capture_lock=None):
+    """Steps 3-4 of the per-stage paths (the reference's jits at
+    pipeline.py:328-333 and depth_association.py:28) as one graph on the
+    card, keyed on min_incidence and captured with `capture_lock` held;
+    eager on the CPU. Returns (q_imu, p_imu, depth)."""
+    body = functools.partial(_glue_depth_body, min_incidence=fe.min_incidence)
+    args = (lqr, lpr, pts, val, obs["xy"], obs["valid"], fe.extrinsics())
+    if graphs.use_graph(pts):
+        return graphs.step("glue_depth", body, args, static=(fe.min_incidence,),
+                           lock=capture_lock)
+    return body(*args)
 
 
 def vil_front_end(tracker_state: trk.TrackerState, lidar_state: lo.MapState, img, pts, val,
@@ -176,37 +240,54 @@ def vil_front_end(tracker_state: trk.TrackerState, lidar_state: lo.MapState, img
     Returns (tracker_state, lidar_state, out) with out a dict: ids, xy, vel,
     depth, tsh, q_imu, p_imu (what the estimator step takes), plus valid,
     uv, track_cnt, lidar_q, lidar_p, lidar_q_rel, lidar_p_rel and the f32 cloud
-    (pts, val) for global fusion."""
+    (pts, val) for global fusion.
+
+    The per-stage path: on the card the tracker, the odometry and the glue
+    with the depth association replay their graphs (`track_step`,
+    `odometry_step`, `glue_depth`); the dequantization and the readout
+    shift run eagerly."""
     if pts.dtype == torch.int16:
         pts, val = _dequant_scan(pts, val, fe.scan_quant, pts.shape[0])
     started = None if frame_index is None else frame_index > 0
     tracker_state, obs = _track(tracker_state, img, t, fe, started, generator, sel)
     lidar_state, (lq, lp, lqr, lpr) = lo.odometry_step(lidar_state, pts, val, fe.lcfg,
                                                        frame_count=frame_index)
-    q_imu, p_imu, cloud_cam = _glue(lqr, lpr, pts, fe)
-    depth, _ = depth_association.feature_depth(obs["xy"], obs["valid"], cloud_cam, val,
-                                               min_incidence=fe.min_incidence)
+    q_imu, p_imu, depth = glue_depth(lqr, lpr, pts, val, obs, fe)
+    return tracker_state, lidar_state, _front_out(obs, lq, lp, lqr, lpr, q_imu, p_imu, depth,
+                                                  pts, val, img.shape[0], fe.tsh_scale)
+
+
+def _front_out(obs, lq, lp, lqr, lpr, q_imu, p_imu, depth, pts, val, rows: int,
+               tsh_scale: float) -> dict:
     # rolling-shutter readout shift TR * (row - ROW / 2) / ROW
-    tsh = fe.tsh_scale * (obs["uv"][:, 1] - 0.5 * img.shape[0])
-    out = dict(ids=obs["ids"], xy=obs["xy"], vel=obs["vel"], depth=depth, tsh=tsh,
-               q_imu=q_imu, p_imu=p_imu, valid=obs["valid"], uv=obs["uv"],
-               track_cnt=obs["track_cnt"],
-               lidar_q=lq, lidar_p=lp, lidar_q_rel=lqr, lidar_p_rel=lpr, pts=pts, val=val)
-    return tracker_state, lidar_state, out
+    tsh = tsh_scale * (obs["uv"][:, 1] - 0.5 * rows)
+    return dict(ids=obs["ids"], xy=obs["xy"], vel=obs["vel"], depth=depth, tsh=tsh,
+                q_imu=q_imu, p_imu=p_imu, valid=obs["valid"], uv=obs["uv"],
+                track_cnt=obs["track_cnt"],
+                lidar_q=lq, lidar_p=lp, lidar_q_rel=lqr, lidar_p_rel=lpr, pts=pts, val=val)
 
 
 def vil_frame(tracker_state: trk.TrackerState, lidar_state: lo.MapState,
               window, feats, pre, lidarc, prior, img, pts, val, acc_b, gyr_b, dt_b,
               n_imu: int, t: float, fe: FrontEnd, ecfg: est_mod.EstimatorConfig,
               frame_index: Optional[int] = None, generator: Optional[torch.Generator] = None,
-              sel=None, capture_lock=None):
+              sel=None, capture_lock=None, u=None):
     """The whole steady-state vil frame (the reference's _vil_frame_program,
-    pipeline.py:110-172): vil_front_end (tracker, lidar odometry, extrinsic
-    glue, depth association), then estimator.fused_full_step (IMU segment,
-    feature ingest, keyframe decision, triangulation, BA, marginalization,
-    slide). The estimator's step is one CUDA graph on the card
-    (fused_full_step, captured with `capture_lock` held); the front end runs
-    eagerly. The reference compiles the whole frame into one program.
+    pipeline.py:110-172): the scan's dequantization, the tracker, lidar
+    odometry, the extrinsic glue, depth association, the readout shift and
+    estimator.fused_full_step (IMU segment, feature ingest, keyframe
+    decision, triangulation, BA, marginalization, slide), in
+    `vil_frame_body`.
+
+    On the card a steady frame (the tracker initialized, the odometry at
+    lo.STEADY) is one graph replay (`graphs.step("vil_frame", ...)`,
+    captured with `capture_lock` held; the estimator's step runs inline in
+    it), keyed on fe.configs(), ecfg, `initialized` and the odometry's
+    branches (as graphs.step does, a key's first call runs the body). Other
+    frames, and the CPU, run the body eagerly. The RANSAC's
+    uniforms are drawn before the replay from `generator`, reseeded from
+    frame_seed(t) (made on the image's device when None); `u` or `sel`
+    inject them (tests).
 
     acc_b, gyr_b (imu_cap, 3), dt_b (imu_cap - 1,) are the padded IMU
     segment on the device and n_imu its host sample count
@@ -214,13 +295,43 @@ def vil_frame(tracker_state: trk.TrackerState, lidar_state: lo.MapState,
     the estimator's states. Returns (tracker_state, lidar_state, window,
     feats, pre, lidarc, prior, out, front) with out fused_full_step's
     outputs and front vil_front_end's."""
-    tracker_state, lidar_state, front = vil_front_end(
-        tracker_state, lidar_state, img, pts, val, t, fe, frame_index, generator, sel)
-    with GLOBAL_TIMERS.timed("estimator"):
-        window, feats, pre, lidarc, prior, out = est_mod.fused_full_step(
-            window, feats, pre, lidarc, prior, acc_b, gyr_b, dt_b, n_imu,
-            front["ids"], front["xy"], front["vel"], front["depth"], front["tsh"],
-            front["q_imu"], front["p_imu"], True, True, ecfg, capture_lock=capture_lock)
+    if frame_index is None:
+        frame_index = int(lidar_state.frame_count)
+    initialized = frame_index > 0
+    br = lo.branches(frame_index, fe.lcfg)
+    if u is None:
+        u = ransac_uniforms(t, fe.tcfg, img.device, generator, sel)
+    static = (fe.configs(), ecfg, initialized, br)
+    body = functools.partial(vil_frame_body, static=static, capture_lock=capture_lock)
+    args = (tracker_state, lidar_state, window, feats, pre, lidarc, prior, img, pts, val,
+            acc_b, gyr_b, dt_b, n_imu, float(t), u, sel, fe.extrinsics())
+    if initialized and br == lo.STEADY and graphs.use_graph(img):
+        return graphs.step("vil_frame", body, args, static=static, lock=capture_lock)
+    return body(*args)
+
+
+def vil_frame_body(tracker_state, lidar_state, window, feats, pre, lidarc, prior, img, pts, val,
+                   acc_b, gyr_b, dt_b, n_imu, t, u, sel, ext: Extrinsics, static,
+                   capture_lock=None):
+    """vil_frame's pure body (what its graph holds), in _vil_frame_program's
+    order; `static` = (fe.configs(), ecfg, initialized, odometry branches).
+    Reads nothing on the host and copies no host data to the device. Run
+    eagerly on the card, its estimator step replays that step's own graph
+    (captured with `capture_lock` held)."""
+    (cam, tcfg, lcfg, scan_quant, tsh_scale, min_incidence), ecfg, initialized, br = static
+    if pts.dtype == torch.int16:
+        pts, val = _dequant_scan(pts, val, scan_quant, pts.shape[0])
+    tracker_state, obs = trk.track_step_body(tracker_state, img, t, None, sel, u, cam, tcfg,
+                                             initialized)
+    lidar_state, (lq, lp, lqr, lpr) = lo.odometry_step_body(lidar_state, pts, val, lcfg, br)
+    q_imu, p_imu, depth = _glue_depth_body(lqr, lpr, pts, val, obs["xy"], obs["valid"], ext,
+                                           min_incidence)
+    front = _front_out(obs, lq, lp, lqr, lpr, q_imu, p_imu, depth, pts, val, img.shape[0],
+                       tsh_scale)
+    window, feats, pre, lidarc, prior, out = est_mod.fused_full_step(
+        window, feats, pre, lidarc, prior, acc_b, gyr_b, dt_b, n_imu,
+        front["ids"], front["xy"], front["vel"], front["depth"], front["tsh"],
+        front["q_imu"], front["p_imu"], True, True, ecfg, capture_lock=capture_lock)
     return tracker_state, lidar_state, window, feats, pre, lidarc, prior, out, front
 
 
@@ -803,6 +914,32 @@ class VILFusionPipeline:
             self.outputs.anchor_kf.append(-1)
             self.outputs.anchor_rel.append(None)
 
+    # -- the per-stage frame (sync_depth = 0, and frames the deferred path
+    #    does not fuse) ---------------------------------------------------
+    def _track_stage(self, img_dev, t, mask):
+        """Step 1: the tracker (its graph on the card once initialized)."""
+        with GLOBAL_TIMERS.timed("tracker"):
+            self.tracker_state, obs = _track(
+                self.tracker_state, img_dev, t, self.fe, self.tracker_frames > 0, self.generator,
+                dyn_mask=None if mask is None else _upload(np.asarray(mask, bool), self.device),
+                capture_lock=self.estimator.capture_lock)
+            self.tracker_frames += 1
+        return obs
+
+    def _lidar_stages(self, pts_dev, val_dev, obs):
+        """Steps 2-4: lidar odometry (its graph on the card from frame 3 on),
+        then the glue with the depth association (one graph). Returns
+        (lidar q, lidar p, IMU-frame q_rel, p_rel, depth)."""
+        lock = self.estimator.capture_lock
+        with GLOBAL_TIMERS.timed("lidar_odometry"):
+            self.lidar_state, (lq, lp, lqr, lpr) = lo.odometry_step(
+                self.lidar_state, pts_dev, val_dev, self.lidar_cfg,
+                frame_count=self.lidar_frames, capture_lock=lock)
+            self.lidar_frames += 1
+        with GLOBAL_TIMERS.timed("depth_association"):
+            q_rel, p_rel, dep = glue_depth(lqr, lpr, pts_dev, val_dev, obs, self.fe, lock)
+        return lq, lp, q_rel, p_rel, dep
+
     # -- the deferred path (sync_depth > 0) ------------------------------
     def _issue_frame(self, t, img, mask, scan):
         """Enqueue one steady frame: tracker -> lidar odometry -> depth
@@ -816,24 +953,12 @@ class VILFusionPipeline:
                 and self.tracker_frames == self.lidar_frames):
             return self._issue_frame_fused(rec, t, img_dev, scan)
         fe, est = self.fe, self.estimator
-        with GLOBAL_TIMERS.timed("tracker"):
-            self.tracker_state, obs = _track(
-                self.tracker_state, img_dev, t, fe, self.tracker_frames > 0, self.generator,
-                dyn_mask=None if mask is None else torch.as_tensor(mask, device=self.device))
-            self.tracker_frames += 1
+        obs = self._track_stage(img_dev, t, mask)
         lidar_q_rel = lidar_p_rel = None
         dep_dev = torch.zeros((self.tracker_cfg.cap,), dtype=torch.float32, device=self.device)
         if scan is not None:
             pts_dev, val_dev = self._scan_dev(scan[1], scan[2])
-            with GLOBAL_TIMERS.timed("lidar_odometry"):
-                self.lidar_state, (lq, lp, lqr, lpr) = lo.odometry_step(
-                    self.lidar_state, pts_dev, val_dev, self.lidar_cfg,
-                    frame_count=self.lidar_frames)
-                self.lidar_frames += 1
-            lidar_q_rel, lidar_p_rel, cloud_cam = _glue(lqr, lpr, pts_dev, fe)
-            with GLOBAL_TIMERS.timed("depth_association"):
-                dep_dev, _ = depth_association.feature_depth(
-                    obs["xy"], obs["valid"], cloud_cam, val_dev, min_incidence=fe.min_incidence)
+            lq, lp, lidar_q_rel, lidar_p_rel, dep_dev = self._lidar_stages(pts_dev, val_dev, obs)
             rec["scan"] = (lq, lp, pts_dev, val_dev)
         acc_b, gyr_b, dt_b, n_imu = self._imu_for_frame(t)
         tsh_dev = None
@@ -953,11 +1078,7 @@ class VILFusionPipeline:
         fe, est, dev = self.fe, self.estimator, self.device
         img_dev = self._image_dev(img)
         # 1. visual tracking
-        with GLOBAL_TIMERS.timed("tracker"):
-            self.tracker_state, obs = _track(
-                self.tracker_state, img_dev, t, fe, self.tracker_frames > 0, self.generator,
-                dyn_mask=None if mask is None else torch.as_tensor(mask, device=dev))
-            self.tracker_frames += 1
+        obs = self._track_stage(img_dev, t, mask)
 
         # 2-4. lidar odometry, extrinsic glue, depth association
         lidar_q_rel = lidar_p_rel = None
@@ -965,15 +1086,7 @@ class VILFusionPipeline:
         pts_dev = val_dev = None
         if scan is not None:
             pts_dev, val_dev = self._scan_dev(scan[1], scan[2])
-            with GLOBAL_TIMERS.timed("lidar_odometry"):
-                self.lidar_state, (lq, lp, lqr, lpr) = lo.odometry_step(
-                    self.lidar_state, pts_dev, val_dev, self.lidar_cfg,
-                    frame_count=self.lidar_frames)
-                self.lidar_frames += 1
-            lidar_q_rel, lidar_p_rel, cloud_cam = _glue(lqr, lpr, pts_dev, fe)
-            with GLOBAL_TIMERS.timed("depth_association"):
-                dep_dev, _ = depth_association.feature_depth(
-                    obs["xy"], obs["valid"], cloud_cam, val_dev, min_incidence=fe.min_incidence)
+            lq, lp, lidar_q_rel, lidar_p_rel, dep_dev = self._lidar_stages(pts_dev, val_dev, obs)
 
         # 5. IMU segment (full-interval spanning, boundary-sample reuse) and
         #    the estimator: tracker outputs are fixed-capacity device tensors

@@ -5,7 +5,10 @@
 tensors and (Named)tuples / dicts of tensors as one captured CUDA graph,
 keyed on (name, `static`, the arguments' structure, shapes, dtypes and
 device) as the jit keys on its static arguments and shapes. The first call
-with a key captures:
+with a key runs `fn` eagerly (a shape seen once, such as a scan of a size
+that never comes back, is not worth a capture and its private memory
+pool); the second captures, unless MAX_GRAPHS graphs of that name exist
+already (then the key keeps running `fn`). A capture:
 
   * the arguments are cloned into static buffers (a Python number becomes a
     0-d int32 / float32 / bool tensor);
@@ -15,7 +18,7 @@ with a key captures:
   * one call is captured (`capture_error_mode="thread_local"`), holding
     `lock` where another thread enqueues on the same device.
 
-Every call, the first included, copies its arguments into the static
+Every call from the capture on copies its arguments into the static
 buffers (`copy_`, or `fill_` for a number), replays the graph and returns
 clones of the outputs. Copying on every call means that host code may
 rebind the state between calls (a restart, a relocalization's gauge
@@ -23,6 +26,12 @@ transform, a checkpoint's restore) without telling anyone; cloning means
 that no output aliases a buffer the next replay overwrites, so snapshots
 and frames in flight keep their values. A failed capture raises: there is
 no eager fallback.
+
+A step called while this thread warms up or captures another step (the
+frame's graph takes in the estimator's step) runs its body inline: its
+kernels become part of the outer graph, and no second capture is started
+(CUDA refuses a nested one). Inside `with inline():` every step of this
+thread runs its eager body (to hold a graph against it).
 
 Kernel wrappers count their launches through `record_launch`: while this
 thread captures, a launch is recorded and counted again at each replay of
@@ -37,7 +46,7 @@ import ctypes
 import functools
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Optional
 
 import numpy as np
@@ -46,20 +55,47 @@ import torch
 count_lock = threading.Lock()  # kernel wrappers update their launch counts under it
 _tls = threading.local()
 
-# replays by step name, and the capture record of every captured step
+# replays and eager calls (a key's first call, or one over MAX_GRAPHS) by
+# step name, and the capture record of every captured step
 replays: dict = {}
+eager_calls: dict = {}
 captures: list = []
+MAX_GRAPHS = 16  # graphs kept a step name
 _steps: dict = {}
+_seen: set = set()  # keys called once
+_graphs_by_name: dict = {}
 _steps_lock = threading.Lock()
+
+
+def use_graph(x: torch.Tensor) -> bool:
+    """Whether a step on tensor `x` replays its CUDA graph: `x` on a CUDA
+    device (elsewhere the caller runs the step's body)."""
+    return x.is_cuda
+
+
+@contextmanager
+def inline():
+    """Run every `step` of this thread inline (its eager body) inside the
+    block."""
+    _tls.inline = getattr(_tls, "inline", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.inline -= 1
+
+
+def capturing() -> bool:
+    """Whether this thread is capturing a graph through `step`."""
+    return (getattr(_tls, "capturing", None) is not None
+            and torch.cuda.is_current_stream_capturing())
 
 
 def record_launch(count: Callable, *args):
     """A kernel wrapper's launch count, `count(*args)`: recorded while this
     thread captures a graph through `step` (and counted at each replay),
     else counted now."""
-    rec = getattr(_tls, "capturing", None)
-    if rec is not None and torch.cuda.is_current_stream_capturing():
-        rec.append((count, args))
+    if capturing():
+        _tls.capturing.append((count, args))
     else:
         count(*args)
 
@@ -87,9 +123,15 @@ def host_constant(values, dtype, device) -> torch.Tensor:
 
 # -- flattening of the arguments and outputs -----------------------------------
 
+_NONE = ("none",)
+
+
 def _flatten(x, leaves: list):
     """The structure of x (hashable) with its leaves appended to `leaves`:
-    tuples, NamedTuples, lists and dicts are containers, anything else a leaf."""
+    tuples, NamedTuples, lists and dicts are containers, None is an empty
+    one, anything else a leaf."""
+    if x is None:
+        return _NONE
     if isinstance(x, (tuple, list)):
         return (type(x), tuple(_flatten(v, leaves) for v in x))
     if isinstance(x, dict):
@@ -101,6 +143,8 @@ def _flatten(x, leaves: list):
 def _unflatten(spec, it):
     if spec is None:
         return next(it)
+    if spec == _NONE:
+        return None
     if spec[0] is dict:
         return dict(zip(spec[1], (_unflatten(s, it) for s in spec[2])))
     kind, kids = spec
@@ -146,21 +190,27 @@ def _graph_nodes(graph) -> Optional[dict]:
     return out
 
 
+def _check_device(name: str, leaves: list) -> torch.device:
+    """The one CUDA device of the tensors in `leaves`, else ValueError."""
+    devs = {x.device for x in leaves if isinstance(x, torch.Tensor)}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"graphs.step({name!r}) needs its tensors on one CUDA device, "
+                         f"got {devs}")
+    return next(iter(devs))
+
+
 class CapturedStep:
     """fn(*args) captured once as a CUDA graph and replayed (module
-    docstring). `stats`: warm-up, capture and instantiation seconds and the
-    graph's nodes by type."""
+    docstring). `stats`: warm-up, capture and instantiation seconds, the
+    graph's nodes by type and the device memory the capture reserved (its
+    private pool's new segments, MiB)."""
 
     def __init__(self, name: str, fn: Callable, args: tuple, warmup: int = 2,
                  lock=None):
         leaves: list = []
         self.spec = _flatten(args, leaves)
-        devs = {x.device for x in leaves if isinstance(x, torch.Tensor)}
-        if len(devs) != 1 or next(iter(devs)).type != "cuda":
-            raise ValueError(f"graphs.step({name!r}) needs its tensors on one CUDA device, "
-                             f"got {devs}")
         self.name = name
-        self.device = next(iter(devs))
+        self.device = _check_device(name, leaves)
         self.static = [x.clone() if isinstance(x, torch.Tensor)
                        else torch.full((), x, dtype=_NUMBER_DTYPES[type(x)], device=self.device)
                        for x in leaves]
@@ -172,12 +222,16 @@ class CapturedStep:
             main = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(main)
-            with torch.cuda.stream(side):
+            with inline(), torch.cuda.stream(side):
                 for _ in range(warmup):
                     fn(*static_args)
             main.wait_stream(side)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
+            # the capture's private pool: what stays reserved after it, with
+            # the cache emptied on both sides (the capture empties it too)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
             try:
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
             except TypeError:
@@ -194,12 +248,15 @@ class CapturedStep:
                 graph.instantiate()
             torch.cuda.synchronize()
             t3 = time.perf_counter()
+            torch.cuda.empty_cache()
+            pool = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
         out_leaves: list = []
         self.out_spec = _flatten(out, out_leaves)
         self.out = out_leaves
         self.stats = dict(name=name, warmup_s=t1 - t0, warmup_calls=warmup, capture_s=t2 - t1,
-                          instantiate_s=t3 - t2, nodes=nodes)
+                          instantiate_s=t3 - t2, nodes=nodes,
+                          pool_mib=pool / 2**20)
 
     def __call__(self, *args):
         leaves: list = []
@@ -223,23 +280,37 @@ class CapturedStep:
 
 
 def step(name: str, fn: Callable, args: tuple, static=(), lock=None):
-    """fn(*args) through its CUDA graph, captured at the first call for this
-    (name, static, argument signature): returns fresh output tensors.
-    `static` holds what fn closes over and the graph depends on (the
-    reference's static arguments); `lock` is held while capturing."""
+    """fn(*args) through its CUDA graph, captured at the second call for this
+    (name, static, argument signature): returns fresh output tensors. The
+    first call, and every call of a key beyond MAX_GRAPHS graphs of `name`,
+    runs fn(*args) eagerly (`eager_calls`). `static` holds what fn closes
+    over and the graph depends on (the reference's static arguments); `lock`
+    is held while capturing. Inside another step's warm-up or capture on
+    this thread, fn(*args) runs inline (its kernels join the outer graph)."""
+    if getattr(_tls, "inline", 0) or capturing():
+        return fn(*args)
     leaves: list = []
     spec = _flatten(args, leaves)
+    _check_device(name, leaves)
     key = (name, static, spec, tuple(_signature(x) for x in leaves))
     with _steps_lock:
         cs = _steps.get(key)
-        if cs is None:
+        if cs is None and key in _seen and _graphs_by_name.get(name, 0) < MAX_GRAPHS:
             cs = CapturedStep(name, fn, args, lock=lock)
             _steps[key] = cs
+            _graphs_by_name[name] = _graphs_by_name.get(name, 0) + 1
             captures.append(cs.stats)
+        _seen.add(key)
+    if cs is None:
+        with count_lock:
+            eager_calls[name] = eager_calls.get(name, 0) + 1
+        return fn(*args)
     return cs(*args)
 
 
 def reset_counts():
-    """Set the replay counts to 0 (the captured graphs stay)."""
+    """Set the replay and eager-call counts to 0 (the captured graphs
+    stay)."""
     with count_lock:
         replays.clear()
+        eager_calls.clear()
