@@ -186,6 +186,9 @@ MIN_LIVE, MIN_TRACKED_MEAN, MIN_TRACKED = 100, 100, 50
 # path vil: warm-up covers the window's filling (the estimator's first fused
 # step is frame K - 1 = 10) and a few steady frames
 VIL_WARMUP, VIL_TIMED = 14, 20
+# global fusion's graphs (the reference's jitted keyframe program, submap ICP
+# and pose-graph relaxation): phases 7-8 hold every replay against its body
+FUSION_GRAPHS = ("keyframe_program", "submap_icp", "posegraph_optimize")
 # phase 12's sharded BA takes phase 7's window after this many frames (all
 # of them). On such a weak window another reduction order can flip an LM
 # accept / reject: one earlier eigensolver's window put the 4 gloo ranks
@@ -1253,11 +1256,78 @@ def _eigh_phase(dev):
     return records
 
 
+def _cond_phase(dev, card):
+    """The conditional node (csrc/cond.cu through graphs.cond) against its
+    plain version, the select (both branches, torch.where), on the main
+    path's predicate (a 0-d bool) with a one-kernel branch each over an
+    operand of the marginal prior's size (172 x 172): a captured step
+    replays, with the predicate true and false in turns, bit for bit what
+    the select gives, and runs the taken branch only (a device counter a
+    branch). Times: the graph's replay (the two set kernels, the two
+    conditional nodes, the taken body) and the select, CUDA-event medians.
+    Returns the kernel line's record."""
+    import torch
+
+    from vil_fusion_tpu_torch.ops.cuda import cond_cuda
+    from vil_fusion_tpu_torch.utils import graphs
+
+    hits = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def t(x):
+        hits[0] += 1
+        return x + 1.0
+
+    def f(x):
+        hits[1] += 1
+        return x * 2.0
+
+    def body(pred, x):
+        return graphs.cond(pred, t, f, (x,))
+
+    x = torch.randn(172, 172, device=dev)
+    preds = [torch.tensor(v, device=dev) for v in (True, False)]
+    graphs.step("cond_check", body, (preds[0], x))  # a key's first call runs the body
+    graphs.step("cond_check", body, (preds[0], x))  # the second captures
+    cs = next(v for k, v in graphs._steps.items() if k[0] == "cond_check")
+    err, runs = 0.0, []
+    for n in range(6):
+        pred = preds[n % 2]
+        torch.cuda.synchronize()
+        h0 = hits.clone()
+        out = graphs.step("cond_check", body, (pred, x + n))
+        torch.cuda.synchronize()
+        runs.append((hits - h0).tolist())
+        ref = body(pred, x + n)  # outside a capture: the select
+        err = max(err, (out - ref).abs().max().item())
+        if not torch.equal(out, ref):
+            raise AssertionError(f"cond: replay {n} differs from the select by {err}")
+    if runs != [[1, 0], [0, 1]] * 3:
+        raise AssertionError(f"cond: the replays ran the branches {runs}, want the taken one")
+    ms = {v: _time_ms(lambda: (cs.static[0].fill_(v), cs.graph.replay())) for v in (True, False)}
+    plain_ms = _time_ms(lambda: body(preds[0], x))
+    moved = 2 * x.numel() * 4 + 1  # the operand read, the result written, the predicate
+    bound = moved / PEAK_BYTES_PER_S * 1e3
+    print(f"  cond: conditional node == select bit for bit on 6 replays (true / false in "
+          f"turns), each running the taken branch only; replay {ms[True]:.4f} / "
+          f"{ms[False]:.4f} ms (true / false), select {plain_ms:.4f} ms, bound {bound:.6f} ms "
+          f"(bytes); {cs.stats['nodes']} [{card}]", flush=True)
+    return {"cond": dict(
+        name="cond graphs.cond: vil_set_conditional_kernel + IF nodes", route="cuda",
+        source="vil_fusion_tpu_torch/csrc/cond.cu",
+        replaces="vil_fusion_tpu/models/estimator.py:380 (lax.cond; not a Pallas kernel)",
+        max_abs_err=err, shape="0-d bool predicate, 172 x 172 operand", ms=ms[True],
+        plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
+        launches_per_call=2, ms_false=ms[False], nodes=cs.stats["nodes"],
+        set_kernel_launches_in_check=cond_cuda.begin.launches)}
+
+
 def _counts(kc):
-    """Launch counts of the eight kernels since the last _reset (K1 and K2:
+    """Launch counts of the nine kernels since the last _reset (K1 and K2:
     unbatched launches of the expanded form; no path launches a batched
-    call in the difference form)."""
-    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+    call in the difference form). A launch inside a conditional body of a
+    graph counts once its replay is settled (graphs.settle: the pipeline
+    settles where it reads a frame's results, a run's end settles all)."""
+    from vil_fusion_tpu_torch.ops.cuda import cond_cuda, eigh_cuda
 
     return {"K1": kc.knn_grouped.launches - kc.knn_grouped.launches_diff
             - kc.knn_grouped.launches_batched,
@@ -1267,16 +1337,19 @@ def _counts(kc):
             "K1 diff": kc.knn_grouped.launches_diff, "K2 diff": kc.knn_exact.launches_diff,
             "Morton keys": kc.morton_keys.launches,
             "eigh": eigh_cuda.eigh.launches - eigh_cuda.eigh.launches_warp,
-            "eigh warp": eigh_cuda.eigh.launches_warp}
+            "eigh warp": eigh_cuda.eigh.launches_warp,
+            "cond": cond_cuda.begin.launches}
 
 
 def _reset(kc):
-    """Every kernel's launch count and the graphs' replay counts to 0."""
-    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+    """Every kernel's launch count and the graphs' replay counts to 0 (and
+    the conditional launches not settled yet dropped)."""
+    from vil_fusion_tpu_torch.ops.cuda import cond_cuda, eigh_cuda
     from vil_fusion_tpu_torch.utils import graphs
 
     kc.reset_counts()
     eigh_cuda.reset_counts()
+    cond_cuda.reset_counts()
     graphs.reset_counts()
 
 
@@ -1354,7 +1427,7 @@ def _lidar_path(name, frames, warmup, dev, card, overrides=None, need=(), prewar
                              f"({len(rec.calls)} recorded), its body ran {first} times, for "
                              f"{len(frames) - 3} steady frames")
     rec.check(name)
-    name_, fn, args, _, _, static = rec.calls[-1]
+    name_, fn, args, _, _, static, _ = rec.calls[-1]
     torch.cuda.set_sync_debug_mode("error")
     try:
         graphs.step(name_, fn, args, static=static)
@@ -1552,8 +1625,45 @@ def _vil_path(frames, images, dev, card, sync_depth=0, save_window=None):
     def step_rec(*a, **kw):
         out = step(*a, **kw)
         if not sync_depth:
-            steps.append((a, kw, out))
+            steps.append((a, kw, out, graphs.last_settlement()
+                          if graphs.replays.get("fused_full_step", 0) > replays_seen[0] else None))
+            replays_seen[0] = graphs.replays.get("fused_full_step", 0)
         return out
+
+    replays_seen = [0]
+    fusion_calls = collections.Counter()  # global fusion's calls under sync_debug_mode error
+    fusion_strict = [False, False]  # the timed deferred frames; inside a strict call
+
+    def strict(name, fn):
+        """fn run under torch.cuda.set_sync_debug_mode("error") during the
+        timed deferred frames, and counted there (a call inside another
+        keeps the outer one's mode)."""
+        def call(*a, **kw):
+            if not fusion_strict[0]:
+                return fn(*a, **kw)
+            fusion_calls[name] += 1
+            outer = fusion_strict[1]
+            fusion_strict[1] = True
+            if not outer:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                if not outer:
+                    torch.cuda.set_sync_debug_mode("default")
+                fusion_strict[1] = outer
+        return call
+
+    if sync_depth:
+        from vil_fusion_tpu_torch.models import posegraph as pg_mod
+
+        fusion = pipe.fusion
+        fusion.add_frame = strict("add_frame", fusion.add_frame)
+        fusion._dispatch_icp = strict("_dispatch_icp", fusion._dispatch_icp)
+        patched = [(pg_mod, "add_loop"), (pg_mod, "optimize_bucketed")]
+        saved = [getattr(m, k) for m, k in patched]
+        for m, k in patched:
+            setattr(m, k, strict(k, getattr(m, k)))
 
     est_mod.fused_full_step = step_rec
     _reset(kc)
@@ -1568,7 +1678,7 @@ def _vil_path(frames, images, dev, card, sync_depth=0, save_window=None):
                     {"track_step": 1, "odometry_step": 1, "glue_depth": 1,
                      "fused_full_step": 1})
     stages = ("track_step", "odometry_step", "glue_depth") + (("vil_frame",) if sync_depth
-                                                              else ())
+                                                              else ()) + FUSION_GRAPHS
     one_replay = 0  # steady frames that were one replay and nothing else
     keys, per_frame, eigh_frame = [], [], []
     t0 = window_state = None
@@ -1578,6 +1688,7 @@ def _vil_path(frames, images, dev, card, sync_depth=0, save_window=None):
                 if i == VIL_WARMUP:
                     torch.cuda.synchronize()
                     GLOBAL_TIMERS.reset()
+                    fusion_strict[0] = bool(sync_depth)
                     t0 = time.perf_counter()
                 n_eigh = _counts(kc)["eigh"] + _counts(kc)["eigh warp"]
                 before, eager0 = _step_calls(names), dict(graphs.eager_calls)
@@ -1594,13 +1705,19 @@ def _vil_path(frames, images, dev, card, sync_depth=0, save_window=None):
                 if i >= n_fill and delta != want:
                     raise AssertionError(f"{name} frame {i}: graph calls {delta}, want {want}")
                 replayed = {k: v - replays0.get(k, 0) for k, v in graphs.replays.items()
-                            if v != replays0.get(k, 0)}
+                            if v != replays0.get(k, 0) and k in names}
                 one_replay += i >= n_fill and replayed == steady_calls
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
     finally:
         est_mod.fused_full_step = step
+        fusion_strict[0] = False
+        if sync_depth:
+            for (m, k), f in zip(patched, saved):
+                setattr(m, k, f)
     pipe.finalize()
+    torch.cuda.synchronize()
+    graphs.settle(wait=True)  # the last replays' conditional launches
     counts = _counts(kc)
     calls, eager = _step_calls(names), dict(graphs.eager_calls)
     new = graphs.captures[n_captures:]
@@ -1615,26 +1732,43 @@ def _vil_path(frames, images, dev, card, sync_depth=0, save_window=None):
     want = {"fused_full_step": n_body if sync_depth else n_steady,
             "vil_frame": n_steady if sync_depth else 0,
             "track_step": n_sync - 1, "odometry_step": n_sync - 3, "glue_depth": n_sync}
-    # the eigensolver: 4 launches a step (a marginalization path's 157 x 157 on
-    # the block kernel and 15 x 15 on the warp kernel; both paths run), each
-    # step and each eager warm-up call of a new capture that holds the step
-    want_eigh = 2 * (calls["fused_full_step"] + calls["vil_frame"] - n_body + sum(
+    # the eigensolver: a marginalization path launches a 157 x 157 on the block
+    # kernel and a 15 x 15 on the warp kernel; a replay (of the step's graph or
+    # the frame's) runs the taken path only, an eager call of the step (a key's
+    # first, or a capture's warm-up) both paths
+    replayed = graphs.replays.get("fused_full_step", 0) + graphs.replays.get("vil_frame", 0)
+    want_eigh = replayed + 2 * (graphs.eager_calls.get("fused_full_step", 0) + sum(
         c["warmup_calls"] for c in new if c["name"] in ("fused_full_step", "vil_frame")))
     print(f"  {name}: graph calls {calls} (of them a key's first call, its body: {eager}) "
           f"for {n_steady} steady frames of {n}; steady frames that were exactly "
           f"{steady_calls} replayed: {one_replay}; eigh launches {counts['eigh']} (block) + "
-          f"{counts['eigh warp']} (warp) (want {want_eigh} each), per frame {eigh_frame}",
-          flush=True)
+          f"{counts['eigh warp']} (warp) (want {want_eigh} each: 1 a replay, the taken path; "
+          f"2 an eager call), per frame as settled {eigh_frame}; conditional set kernels "
+          f"{counts['cond']}", flush=True)
+    print(f"  {name}: global fusion's graphs: replays "
+          f"{ {k: graphs.replays.get(k, 0) for k in FUSION_GRAPHS} }, first calls of a key "
+          f"{ {k: graphs.eager_calls.get(k, 0) for k in FUSION_GRAPHS} }", flush=True)
     _capture_report(name, new)
     if (calls != want or est.fused_steps != n_steady or counts["eigh"] != want_eigh
             or counts["eigh warp"] != want_eigh or any(v > 1 for v in eager.values())
-            or one_replay < n_steady - 2):
+            or one_replay < n_steady - 2 or counts["cond"] != 2 * replayed):
         raise AssertionError(f"{name}: graph calls {calls} (want {want}), first calls {eager}, "
                              f"{one_replay} steady frames only replays, {est.fused_steps} fused "
                              f"steps, {counts['eigh']} + {counts['eigh warp']} eigh launches for "
                              f"{n_steady} steady frames")
     rec.check(name)
     if sync_depth:
+        stages_t = GLOBAL_TIMERS.summary()
+        print(f"  {name}: global fusion's calls of the {VIL_TIMED} timed frames under "
+              f"torch.cuda.set_sync_debug_mode('error'), no sync: {dict(fusion_calls)}; host ms "
+              f"(GLOBAL_TIMERS mean / p50 / max): " + ", ".join(
+                  f"{k} {stages_t[k]['mean_ms']:.2f} / {stages_t[k]['p50_ms']:.2f} / "
+                  f"{stages_t[k]['max_ms']:.2f}" for k in ("frame_wait", "global_fusion")
+                  if k in stages_t) + f" [{card}]",
+              flush=True)
+        if fusion_calls["add_frame"] < VIL_TIMED - sync_depth:
+            raise AssertionError(f"{name}: global fusion ran {dict(fusion_calls)} in the "
+                                 f"timed frames")
         rec.times(name, "vil_frame", card)
         print(f"  {name}: {one_replay} of {n_steady} steady frames one replay of the frame's "
               f"graph (the first runs the body, the second captures); from their uploads to "
@@ -1659,6 +1793,20 @@ def _leaves(x):
     if isinstance(x, dict):
         return [y for k in sorted(x) for y in _leaves(x[k])]
     return [x]
+
+
+def _clone_leaves(x):
+    """x with every tensor leaf cloned (tuples, NamedTuples, lists, dicts)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_leaves(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        vals = [_clone_leaves(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+    return x
 
 
 def _bits(x):
@@ -1690,13 +1838,17 @@ class _GraphRecorder:
             if name not in self.names or graphs.capturing() or getattr(graphs._tls, "inline", 0):
                 return self.step(name, fn, args, static, lock)
             n_cap, c0, r0 = len(graphs.captures), _counts(self.kc), graphs.replays.get(name, 0)
+            # global fusion's stores are written in place after the call: keep
+            # the arguments as the call saw them
+            kept = _clone_leaves(args) if name in FUSION_GRAPHS else args
             out = self.step(name, fn, args, static, lock)
             c1 = _counts(self.kc)
             if graphs.replays.get(name, 0) == r0:  # a key's first call: the body ran
                 return out
             launched = ({k: c1[k] - c0[k] for k in c1} if len(graphs.captures) == n_cap
                         else None)
-            self.calls.append((name, fn, args, out, launched, static))
+            self.calls.append((name, fn, kept, out, launched, static,
+                               graphs.last_settlement()))
             return out
 
         graphs.step = rec
@@ -1711,12 +1863,21 @@ class _GraphRecorder:
         import torch
 
         done, t0 = {}, time.perf_counter()
-        for n, (name, fn, args, out, launched, _) in enumerate(self.calls):
+        torch.cuda.synchronize()
+        for n, (name, fn, args, out, launched, _, settled) in enumerate(self.calls):
             c0 = _counts(self.kc)
             with self.graphs.inline():
                 ref = fn(*args)
             c1 = _counts(self.kc)
             eager = {k: c1[k] - c0[k] for k in c1}
+            if launched is not None and settled is not None:
+                # the eager body runs both branches of a conditional node, the
+                # replay the taken one: add what it ran and what it skipped
+                for taken in (True, False):
+                    extra = self._applied(settled.launches_of(taken, wait=True))
+                    launched = {k: launched[k] + extra[k] for k in launched}
+                launched["cond"] = 0  # the set kernels: graphs only
+                eager["cond"] = 0
             a, b = _leaves(out), _leaves(ref)
             bad = [i for i, (x, y) in enumerate(zip(a, b))
                    if not (isinstance(x, torch.Tensor) and x.shape == y.shape
@@ -1728,16 +1889,27 @@ class _GraphRecorder:
                 raise AssertionError(f"{label}: replay {n} of {name} counted kernel launches "
                                      f"{launched}, its eager body {eager}")
             done[name] = done.get(name, 0) + 1
-        print(f"  {label}: graph = eager body bit for bit, and the same kernel launches, on "
-              f"every replay: {done} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        print(f"  {label}: graph = eager body bit for bit, and the same kernel launches (a "
+              f"conditional node's taken and skipped bodies together), on every replay: "
+              f"{done} ({time.perf_counter() - t0:.1f} s)", flush=True)
         return done
+
+    def _applied(self, launches) -> dict:
+        """The launch counts (as _counts reads them) that `launches`, (count,
+        args) pairs of a settlement, add (applied to the counters: after the
+        run's gates)."""
+        c0 = _counts(self.kc)
+        for count, a in launches:
+            count(*a)
+        c1 = _counts(self.kc)
+        return {k: c1[k] - c0[k] for k in c1}
 
     def times(self, label, name, card, reps=5):
         """The last recorded replay of `name` timed again (CUDA-event and host
         medians over `reps` calls) against its eager body (2 calls)."""
         import torch
 
-        _, fn, args, _, _, static = [c for c in self.calls if c[0] == name][-1]
+        _, fn, args, _, _, static, _ = [c for c in self.calls if c[0] == name][-1]
         out = {}
         for kind, call, n in (("graph", lambda: self.step(name, fn, args, static), reps),
                               ("eager", lambda: fn(*args), 2)):
@@ -1769,14 +1941,26 @@ def _step_calls(names) -> dict:
     return {k: graphs.replays.get(k, 0) + graphs.eager_calls.get(k, 0) for k in names}
 
 
+def _by_name(caps) -> dict:
+    """{graph name: (graphs, pool + static argument MiB)} of capture records."""
+    out: dict = {}
+    for c in caps:
+        n, mib = out.get(c["name"], (0, 0.0))
+        out[c["name"]] = (n + 1, round(mib + c["pool_mib"] + c.get("static_mib", 0.0), 1))
+    return out
+
+
 def _capture_report(label, new):
     """One line a graph captured in a run: nodes, seconds, pool memory."""
     for c in new:
         nodes = c["nodes"] or {}
         print(f"  {label}: graph {c['name']}: {nodes.get('total', 'n/a')} nodes "
-              f"({nodes.get('kernel', 'n/a')} kernels), warm-up {c['warmup_s']:.2f} s "
+              f"({nodes.get('kernel', 'n/a')} kernels; {nodes.get('conditional', 0)} "
+              f"conditional nodes, {nodes.get('in_bodies', 0)} nodes in their bodies), "
+              f"warm-up {c['warmup_s']:.2f} s "
               f"({c['warmup_calls']} calls), capture {c['capture_s']:.2f} s, instantiation "
-              f"{c['instantiate_s']:.2f} s, pool {c['pool_mib']:.1f} MiB", flush=True)
+              f"{c['instantiate_s']:.2f} s, pool {c['pool_mib']:.1f} MiB, static arguments "
+              f"{c.get('static_mib', 0.0):.1f} MiB", flush=True)
 
 
 # launch, copy and wait calls of the CUDA runtime as torch.profiler names them
@@ -1788,9 +1972,11 @@ def _graph_checks(name, steps, est, card):
     """Phase 7: every recorded steady step's graph result against the eager
     body (`_fused_full_step_body`) on the same inputs, bit for bit, both
     keyframe decisions among them; one replay's host time, device time and
-    host launches (torch.profiler) beside the eager body's; one replay under
-    torch.cuda.set_sync_debug_mode("error"); each marginalization path's
-    device time alone (a graph each: the device select's cost); the final window's two
+    host launches (torch.profiler) beside the eager body's; each replay's
+    eigh launches those of its taken marginalization path (1 + 1); a
+    keyframe replay's and a non-keyframe replay's device time; one replay
+    under torch.cuda.set_sync_debug_mode("error"); each marginalization
+    path's device time alone (a graph each); the final window's two
     marginalizations: every matrix they hand the eigensolver through the
     kernel against torch.linalg.eigh and float64 (`_eigh_check`), a 15 x 15
     and a 157 x 157 of them timed through both in turns (returned), and each
@@ -1811,9 +1997,12 @@ def _graph_checks(name, steps, est, card):
     from vil_fusion_tpu_torch.models import marginalization as marg
     from vil_fusion_tpu_torch.utils import graphs
 
-    keys = []
+    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+
+    keys, taken = [], []
     t0 = time.perf_counter()
-    for n, (a, kw, out) in enumerate(steps):
+    torch.cuda.synchronize()
+    for n, (a, kw, out, settled) in enumerate(steps):
         body = est_mod._fused_full_step_body(*a[:17], run_ba=a[17], cfg=a[18])
         bad = [i for i, (x, y) in enumerate(zip(_leaves(out), _leaves(body)))
                if not torch.equal(x, y)]
@@ -1821,13 +2010,32 @@ def _graph_checks(name, steps, est, card):
             raise AssertionError(f"{name}: steady step {n}: the graph's outputs {bad} differ "
                                  f"from the eager body's")
         keys.append(bool(out[5]["is_key"]))
+        if settled is not None:  # a replay: the eigh launches of the path it took
+            e0, w0 = eigh_cuda.eigh.launches, eigh_cuda.eigh.launches_warp
+            for count, arg in settled.launches_of(True, wait=True):
+                count(*arg)
+            taken.append((keys[-1], eigh_cuda.eigh.launches - e0 - (
+                eigh_cuda.eigh.launches_warp - w0), eigh_cuda.eigh.launches_warp - w0))
     print(f"  {name}: graph = eager body bit for bit on all {len(steps)} steady steps "
           f"(keyframes {sum(keys)}, non-keyframes {len(keys) - sum(keys)}; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     if len(set(keys)) < 2:
         raise AssertionError(f"{name}: the steady steps hold one keyframe decision: {keys}")
+    print(f"  {name}: eigh launches of each replay's taken marginalization path (keyframe, "
+          f"block, warp): {taken}", flush=True)
+    if not taken or any(t[1:] != (1, 1) for t in taken) or len({t[0] for t in taken}) < 2:
+        raise AssertionError(f"{name}: a replay's eigh launches {taken}, want 1 + 1 of the "
+                             f"taken path with both decisions replayed")
 
-    a, kw, _ = steps[-1]
+    # a keyframe replay and a non-keyframe replay timed apart
+    by_key = {}
+    for k in (True, False):
+        a, kw = next((a, kw) for a, kw, out, _ in reversed(steps) if bool(out[5]["is_key"]) == k)
+        by_key[k] = _time_ms(lambda: est_mod.fused_full_step(*a, **kw), reps=5, warmup=1)
+    print(f"  {name}: one replay of the step's graph, CUDA-event device ms (median of 5): "
+          f"keyframe {by_key[True]:.2f}, non-keyframe {by_key[False]:.2f} [{card}]", flush=True)
+
+    a, kw, _, _ = steps[-1]
     times = {}
     for kind, fn, reps in (("graph", lambda: est_mod.fused_full_step(*a, **kw), 5),
                            ("eager", lambda: est_mod._fused_full_step_body(
@@ -1870,9 +2078,8 @@ def _graph_checks(name, steps, est, card):
     print(f"  {name}: a replay under torch.cuda.set_sync_debug_mode('error'): no sync",
           flush=True)
 
-    # what the device select costs: each marginalization path alone as a graph
-    # of its own on the final window (CUDA-event medians, its input copies and
-    # output clones included)
+    # each marginalization path alone as a graph of its own on the final window
+    # (CUDA-event medians, its input copies and output clones included)
     st = (est.window, est.feats, est.pre, est.lidar, est.prior)
     path_ms = {}
     for key in (True, False):
@@ -1880,8 +2087,8 @@ def _graph_checks(name, steps, est, card):
         path_ms[key] = _time_ms(lambda: graphs.step(f"marginalize_and_slide({key})", path, st,
                                                     static=(est.cfg,)), reps=10)
     print(f"  {name}: the marginalization paths alone (graphs, device ms): keyframe "
-          f"{path_ms[True]:.2f}, non-keyframe {path_ms[False]:.2f}; the device select runs both "
-          f"every frame [{card}]", flush=True)
+          f"{path_ms[True]:.2f}, non-keyframe {path_ms[False]:.2f}; the step's conditional node "
+          f"runs the taken one [{card}]", flush=True)
 
     state, cfg = (est.window, est.feats, est.pre, est.lidar, est.prior), est.cfg
 
@@ -2057,6 +2264,7 @@ def _cold_start(dev, frame=None):
     from vil_fusion_tpu_torch.runtime import sim
     from vil_fusion_tpu_torch.runtime.config import RigConfig
     from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+    from vil_fusion_tpu_torch.utils import graphs
 
     rig, odom, gf_kw, traj, scene = cold_start_rig(sim, RigConfig)
     pipe = VILFusionPipeline(rig, mode="vil", sync_depth=0, odom_overrides=odom,
@@ -2088,6 +2296,8 @@ def _cold_start(dev, frame=None):
           f"before it {pipe.estimator.init_failures}, {i + 1} frames in "
           f"{time.perf_counter() - t0:.1f} s, restarts {pipe.restarts}, fused steps "
           f"{pipe.estimator.fused_steps}", flush=True)
+    torch.cuda.synchronize()
+    graphs.settle(wait=True)  # the last replays' conditional launches
     return _counts(kc)
 
 
@@ -2127,6 +2337,7 @@ def _loop_path(dev, card, frame=None):
     r = loop_lap(pipe, sim, tum, traj, scene, LOOP_FRAMES, on_frame, frame)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graphs.settle(wait=True)
     counts = _counts(kc)
     # a steady frame's estimator step: the frame's graph (fused frames) or the
     # step's own, a replay or a key's first call (the frame's body then calls
@@ -2158,6 +2369,10 @@ def _loop_path(dev, card, frame=None):
     print("  loop: host ms per frame (GLOBAL_TIMERS mean / p50 / n): " + ", ".join(
         f"{k} {v['mean_ms']:.2f} / {v['p50_ms']:.2f} / {v['n']}" for k, v in stages.items()),
         flush=True)
+    print(f"  loop: global fusion's graphs (ICP verifications, relaxations, keyframes): "
+          f"replays { {k: graphs.replays.get(k, 0) for k in FUSION_GRAPHS} }, first calls "
+          f"of a key { {k: graphs.eager_calls.get(k, 0) for k in FUSION_GRAPHS} }, loops "
+          f"accepted {len(pipe.fusion.loops_found)}", flush=True)
     print(f"  loop: the frame's and the estimator's graphs called {replays} times for "
           f"{pipe.estimator.fused_steps} steady frames (replays {dict(graphs.replays)}, first "
           f"calls of a key {dict(graphs.eager_calls)}); eigh launches "
@@ -2370,6 +2585,7 @@ def _synthetic_path(dev, card):
 
     from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
     from vil_fusion_tpu_torch.tools import run_synthetic
+    from vil_fusion_tpu_torch.utils import graphs
 
     out = ROOT / "build" / "smoke_synthetic"
     out.mkdir(parents=True, exist_ok=True)
@@ -2378,6 +2594,7 @@ def _synthetic_path(dev, card):
         rep = run_synthetic.main(["--frames", str(SYNTH_FRAMES), "--out", str(out),
                                   "--device", torch.device(dev).type])
     torch.cuda.synchronize()
+    graphs.settle(wait=True)
     counts = _counts(kc)
     st = rep["replay"]
     print(f"  synthetic: {rep['frames']} frames in {rep['wall_s']} s = {rep['fps']} frames/s "
@@ -2391,6 +2608,9 @@ def _synthetic_path(dev, card):
           f"fusion keyframes {rep.get('ate_rmse_fusion')} m, lidar end error "
           f"{rep['lidar_end_err_m']:.4f} m (bounds {SYNTH_BOUND_M} m); launches {counts}",
           flush=True)
+    print(f"  synthetic: global fusion's graphs: replays "
+          f"{ {k: graphs.replays.get(k, 0) for k in FUSION_GRAPHS} }, first calls of a key "
+          f"{ {k: graphs.eager_calls.get(k, 0) for k in FUSION_GRAPHS} }", flush=True)
     bad = []
     if rep["frames"] != SYNTH_FRAMES or rep["restarts"] or rep["vl_errors"] or st["dropped"]:
         bad.append(f"{rep['frames']} frames, restarts {rep['restart_log']}, worker errors "
@@ -2968,11 +3188,12 @@ def _phases(card, dev, kc, pool, n_procs, t_start, save_window=None) -> int:
     # phase 2: build, one nvcc a source, side by side
     from concurrent.futures import ThreadPoolExecutor
 
+    from vil_fusion_tpu_torch.ops.cuda import cond_cuda as cc
     from vil_fusion_tpu_torch.ops.cuda import eigh_cuda as ec
 
     t1 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(kc.build, verbose=True), ex.submit(ec.build, verbose=True)]:
+    with ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(b, verbose=True) for b in (kc.build, ec.build, cc.build)]:
             f.result()
     print(f"build: {time.perf_counter() - t1:.2f} s into {kc.BUILD_DIR}", flush=True)
     frames = scans.get()
@@ -2983,6 +3204,7 @@ def _phases(card, dev, kc, pool, n_procs, t_start, save_window=None) -> int:
     print(f"kernels: [{time.perf_counter() - t_start:.1f} s after the device check]", flush=True)
     records = _kernel_phase(frames, dev)
     records.update(_eigh_phase(dev))
+    records.update(_cond_phase(dev, card))
     launches = {k: {} for k in records}
 
     def add(path, counts):
@@ -3101,7 +3323,7 @@ def _phases(card, dev, kc, pool, n_procs, t_start, save_window=None) -> int:
                "K3": ("sparse",), "K1 diff": ("diff",), "K2 diff": ("deskew",),
                "Morton keys": ("sparse",), "K1 batched": ("batched",),
                "K2 batched": ("batched exact",), "eigh": ("vil", "deferred", "loop"),
-               "eigh warp": ("vil", "deferred", "loop")}
+               "eigh warp": ("vil", "deferred", "loop"), "cond": ("vil", "deferred", "loop")}
     for kname, rec in records.items():
         rec["launches_by_path"] = launches[kname]
         rec["launches"] = sum(launches[kname].values())
@@ -3116,7 +3338,9 @@ def _phases(card, dev, kc, pool, n_procs, t_start, save_window=None) -> int:
           f"{dict(collections.Counter(c['name'] for c in caps))}; warm-up "
           f"{sum(c['warmup_s'] for c in caps):.1f} s, capture {sum(c['capture_s'] for c in caps):.1f}"
           f" s, instantiation {sum(c['instantiate_s'] for c in caps):.1f} s, pools "
-          f"{sum(c['pool_mib'] for c in caps):.0f} MiB; the card's peak reserved memory "
+          f"{sum(c['pool_mib'] for c in caps):.0f} MiB, static arguments "
+          f"{sum(c.get('static_mib', 0.0) for c in caps):.0f} MiB; by name (graphs, pools + "
+          f"static MiB) {_by_name(caps)}; the card's peak reserved memory "
           f"{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB [{card}]", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(card)

@@ -924,9 +924,12 @@ def test_cuda_graph_step_equals_body(gpu_sequence):
     body, the others replay), and each step's outputs equal the eager
     body's on the same inputs bit for bit (the step has no atomics: two
     eager runs are identical); the eigensolver's launches are counted at
-    each replay, 4 a step, 2 of them on the warp kernel."""
+    each replay that ran their marginalization path: 2 a step (the taken
+    path's 157 x 157 and 15 x 15), settled once the replay's keyframe
+    decision has landed on the host, and the conditional node's set kernel
+    twice a replay."""
     from vil_fusion_tpu_torch.models import estimator as est_mod
-    from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
+    from vil_fusion_tpu_torch.ops.cuda import cond_cuda, eigh_cuda
     from vil_fusion_tpu_torch.utils import graphs
 
     est, steps, _ = gpu_sequence
@@ -937,12 +940,15 @@ def test_cuda_graph_step_equals_body(gpu_sequence):
             assert torch.equal(x, y)
         keys.append(bool(out[5]["is_key"]))
     assert any(keys) and not all(keys)
+    graphs.settle(wait=True)
     r0, e0 = graphs.replays.get("fused_full_step", 0), eigh_cuda.eigh.launches
-    w0 = eigh_cuda.eigh.launches_warp
+    w0, c0 = eigh_cuda.eigh.launches_warp, cond_cuda.begin.launches
     a, kw, out = steps[-1]
     again = est_mod.fused_full_step(*a, **kw)
-    assert graphs.replays["fused_full_step"] == r0 + 1 and eigh_cuda.eigh.launches == e0 + 4
-    assert eigh_cuda.eigh.launches_warp == w0 + 2  # the two 15 x 15 Schur blocks
+    assert graphs.replays["fused_full_step"] == r0 + 1 and cond_cuda.begin.launches == c0 + 2
+    assert graphs.settle(wait=True) == 1
+    assert eigh_cuda.eigh.launches == e0 + 2
+    assert eigh_cuda.eigh.launches_warp == w0 + 1  # the taken path's 15 x 15 Schur block
     for x, y in zip(_leaves(again), _leaves(out)):
         assert torch.equal(x, y)
 
@@ -1108,22 +1114,35 @@ class _StepRecorder:
             c1 = counts()
             if graphs.replays.get(name, 0) > r0:  # not a key's first call (the body)
                 self.calls.append((name, fn, args, out, None if len(graphs.captures) > n_cap
-                                   else tuple(b - a for a, b in zip(c0, c1))))
+                                   else tuple(b - a for a, b in zip(c0, c1)),
+                                   graphs.last_settlement()))
             return out
 
         self.counts = counts
         monkeypatch.setattr(graphs, "step", rec)
 
+    def _applied(self, launches):
+        """The launch counts `launches` ((count, args) pairs) add."""
+        c0 = self.counts()
+        for count, a in launches:
+            count(*a)
+        return tuple(b - a for a, b in zip(c0, self.counts()))
+
     def check(self):
         """Each replay against its eager body: outputs bit for bit, the same
-        kernel launches counted."""
+        kernel launches counted, but for the conditional bodies: the eager
+        body runs both branches, the replay the taken one."""
         from vil_fusion_tpu_torch.utils import graphs
 
-        for name, fn, args, out, launched in self.calls:
+        for name, fn, args, out, launched, settled in self.calls:
             c0 = self.counts()
             with graphs.inline():
                 ref = fn(*args)
             eager = tuple(b - a for a, b in zip(c0, self.counts()))
+            if launched is not None and settled is not None:
+                taken = self._applied(settled.launches_of(True, wait=True))
+                skipped = self._applied(settled.launches_of(False))
+                launched = tuple(x + y + z for x, y, z in zip(launched, taken, skipped))
             assert launched is None or launched == eager, (name, launched, eager)
             a, b = _leaves(out), _leaves(ref)
             assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)), name
@@ -1190,9 +1209,10 @@ def test_cuda_frame_graphs_equal_eager(cuda_device, monkeypatch, sync_depth):
     pipe._issue_frame = issue_checked
     graphs.reset_counts()
 
-    def calls():  # replays, and first calls of a key (their bodies run)
+    def calls():  # replays, and first calls of a key (their bodies run), of the frame's steps
         return {k: graphs.replays.get(k, 0) + graphs.eager_calls.get(k, 0)
-                for k in set(graphs.replays) | set(graphs.eager_calls)}
+                for k in (set(graphs.replays) | set(graphs.eager_calls))
+                & {*names, "fused_full_step"}}
 
     for i, (t, img, pts, val, imu) in enumerate(frames):
         if imu is not None:
@@ -1217,3 +1237,131 @@ def test_cuda_frame_graphs_equal_eager(cuda_device, monkeypatch, sync_depth):
         assert graphs.replays.get("vil_frame", 0) >= 3
     assert len(rec.calls) == sum(n for k, n in graphs.replays.items() if k in names)
     rec.check()
+
+
+def test_cuda_cond_replays_the_taken_branch(cuda_device):
+    """graphs.cond inside a captured step: a conditional node whose replay
+    runs the taken branch only. The branches write distinct values and
+    bump their own slot of a device counter; over replays with the
+    predicate flipped only the taken branch's slot grows, the outputs equal
+    the eager select's (both branches, torch.where) bit for bit, and an
+    output that is an operand is not overwritten by the other branch. The
+    launches recorded in a body count at the replays that ran it, once
+    their predicates have landed (graphs.settle), and the graph's nodes
+    count the bodies' (2 conditional nodes outside)."""
+    from vil_fusion_tpu_torch.ops.cuda import cond_cuda
+    from vil_fusion_tpu_torch.utils import graphs
+
+    hits = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    seen = []
+
+    def branch(k, val):
+        def fn(x, y):
+            hits[k] += 1
+            graphs.record_launch(seen.append, k)
+            return x * val + 1.0, y  # y: an operand, returned as it is
+        return fn
+
+    def body(pred, x, y):
+        a, b = graphs.cond(pred, branch(0, 2.0), branch(1, -3.0), (x * 1.0, y))
+        return a + 0.5, b * 1.0
+
+    x = torch.arange(6, dtype=torch.float32, device=cuda_device)
+    y = torch.full((3,), 7.0, device=cuda_device)
+    n_cap = len(graphs.captures)
+    graphs.step("cond_test", body, (torch.tensor(True, device=cuda_device), x, y))  # the body
+    torch.cuda.synchronize()
+    hits.zero_()
+    seen.clear()
+    graphs.settle(wait=True)
+    c0 = cond_cuda.begin.launches
+    for k, flag in enumerate((True, False, False, True, False)):
+        pred = torch.tensor(flag, device=cuda_device)
+        out = graphs.step("cond_test", body, (pred, x + k, y))  # the first captures
+        ref = body(pred, x + k, y)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], y), k
+    stats = graphs.captures[n_cap]
+    assert stats["nodes"]["conditional"] == 2 and stats["nodes"]["in_bodies"] > 0
+    # the capture's 2 warm-up calls and the 5 eager references ran both
+    # branches, the capture none; the 5 replays ran one branch each
+    assert hits.tolist() == [2 + 5 + 2, 2 + 5 + 3], hits.tolist()
+    assert torch.equal(y, torch.full((3,), 7.0, device=cuda_device))
+    graphs.settle(wait=True)
+    assert sorted(seen) == sorted([0, 1] * (2 + 5) + [0, 1, 1, 0, 1]), seen
+    assert cond_cuda.begin.launches == c0 + 2 * 5
+
+
+def test_cuda_global_fusion_graphs_without_sync(cuda_device):
+    """GlobalFusion on the card: after the graphs of its keyframe program,
+    submap ICP and relaxation are captured, keyframes, an ICP dispatch, a
+    loop edge and a relaxation run under torch.cuda.set_sync_debug_mode(
+    "error") without raising; the graph, database and clouds equal those
+    of the same keyframes through the eager bodies (graphs.inline())."""
+    from vil_fusion_tpu_torch.models import global_fusion as gf
+    from vil_fusion_tpu_torch.models import posegraph as pg
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.utils import graphs
+
+    scene = sim.RaycastScene()
+    cfg = gf.GlobalFusionConfig(node_capacity=64, loop_capacity=8, cloud_capacity=1024,
+                                submap_half_span=3)
+    scans = []
+    for i in range(9):
+        yaw = 0.04 * i
+        R = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+        p = np.array([10.0 + 2.5 * i, 0.5, 1.5])
+        pts, val = sim.simulate_lidar_scan(scene, R, p, n_scan=16, width=900, fov_up_deg=15.0,
+                                           fov_down_deg=-15.0, max_range=80.0, seed=i)
+        scans.append((sim.R_to_q(R).astype(np.float32), p.astype(np.float32),
+                      torch.from_numpy(pts).to(cuda_device), torch.from_numpy(val).to(cuda_device)))
+
+    q_id = torch.tensor([1.0, 0.0, 0.0, 0.0], device=cuda_device)
+
+    def run(eager):
+        f, icps = gf.GlobalFusion(cfg, device=cuda_device), []
+        for i, (q, p, pts, val) in enumerate(scans):
+            strict = not eager and i >= 4  # the graphs exist from the fourth keyframe on
+            with graphs.inline() if eager else _sync_mode("error" if strict else None):
+                f.add_frame(q, p, pts, val, t=float(i))
+                if i >= 2:  # the ICP and the relaxation: the first call runs the body,
+                    f._dispatch_icp(i, 0, 0.1)  # the second captures
+                    icps.append(f._pending_icp.pop())  # never accepted: no loop edge
+                    f.graph = pg.optimize_bucketed(f.graph, f.n_kf)
+        with _sync_mode("error") if not eager else graphs.inline():
+            f.graph = pg.add_loop(f.graph, 0, 8, q_id, torch.zeros(3, device=cuda_device))
+        f.flush()
+        torch.cuda.synchronize()
+        return f, icps
+
+    (g, icp_g), (e, icp_e) = run(False), run(True)
+    for a, b in zip(icp_g, icp_e):  # (i, j, q, p, fitness): bit for bit
+        assert a[:2] == b[:2] and torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+        assert torch.equal(a[4].get()[0], b[4].get()[0])
+    for name in ("keyframe_program", "submap_icp", "posegraph_optimize"):
+        assert graphs.replays.get(name, 0) > 0, name
+    # bit for bit, but the relaxed poses: optimize's index_add_ sums in
+    # atomic order on the card (within 1e-5 m / 1e-5 of the quaternion)
+    for a, b in ((g.graph, e.graph), (g.scdb, e.scdb)):
+        for k, x, y in zip(a._fields, a, b):
+            if k in ("q", "p"):
+                assert (x - y).abs().max().item() <= 1e-5, k
+            else:
+                assert torch.equal(x, y), k
+    assert torch.equal(g.clouds, e.clouds) and torch.equal(g.cloud_valid, e.cloud_valid)
+    assert len(icp_g) == len(icp_e) == 7 and g.n_kf == e.n_kf == 9
+
+
+class _sync_mode:
+    """torch.cuda.set_sync_debug_mode(mode) inside the block (None: as it is)."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        if self.mode:
+            torch.cuda.set_sync_debug_mode(self.mode)
+
+    def __exit__(self, *exc):
+        if self.mode:
+            torch.cuda.set_sync_debug_mode("default")

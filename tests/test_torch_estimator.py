@@ -395,15 +395,15 @@ def _leaves(x):
 
 @pytest.mark.parametrize("key", [True, False], ids=["keyframe", "non-keyframe"])
 def test_device_select_equals_host_branch(seq, key):
-    """The marginalization selected on the device by a 0-d bool tensor
-    (_marginalize_and_slide_select, which computes both paths) equals the
-    host branch of that decision (_marginalize_and_slide) bit for bit, on
-    every field of window, feats, pre, lidar and prior; from the port's
-    final state."""
+    """The marginalization chosen on the device by a 0-d bool tensor
+    (_marginalize_and_slide_cond: graphs.cond, which outside a capture
+    computes both paths and selects) equals the host branch of that
+    decision (_marginalize_and_slide) bit for bit, on every field of
+    window, feats, pre, lidar and prior; from the port's final state."""
     _, _, te, _ = seq
     state = (te.window, te.feats, te.pre, te.lidar, te.prior)
     assert bool(te.prior.valid)
-    dev = test_._marginalize_and_slide_select(torch.tensor(key), *state, te.cfg)
+    dev = test_._marginalize_and_slide_cond(torch.tensor(key), *state, te.cfg)
     host = test_._marginalize_and_slide(key, *state, te.cfg)
     for a, b in zip(_leaves(dev), _leaves(host)):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -426,3 +426,50 @@ def test_fused_full_step_on_cpu_is_the_body(seq, monkeypatch):
     body = test_._fused_full_step_body(*args[:17], run_ba=args[17], cfg=args[18])
     for a, b, c in zip(_leaves(out), _leaves(body), _leaves(ref)):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _jax_like(template, x):
+    """The port's value `x` as the JAX package's, shaped like `template` (a
+    JAX NamedTuple, nested, or an array)."""
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(**{k: _jax_like(getattr(template, k), getattr(x, k))
+                                 for k in template._fields})
+    return jnp.asarray(np_(x))
+
+
+@pytest.mark.parametrize("key", [True, False], ids=["keyframe", "non-keyframe"])
+def test_fused_step_cond_matches_reference(seq, key):
+    """A keyframe and a non-keyframe steady frame of the sequence: the
+    port's fused_full_step (its marginalization through graphs.cond) and
+    the reference's (lax.cond) from the same inputs, the port's carried
+    into JAX. Same keyframe decision and failure mask; the newest pose and
+    the slid window within 1e-4 m / 1e-4 rad, velocities within 1e-3 m/s;
+    feature bookkeeping exact; the marginal prior's J^T J within 1e-2 of its
+    largest entry (test_fused_step_from_carried_state's tolerance), its
+    validity equal and its linearization point within 1e-4 m. Its J^T r0 is
+    not compared: from a window 1e-4 apart it moves by up to 15% of its
+    largest entry on this sequence (g lies outside the numerical range of
+    Lam, and float32's noise floor decides what of it survives:
+    test_torch_marginalization.py, chip_smoke.py's _graph_checks)."""
+    _, je, _, rec = seq
+    r = next(r for r in rec[K - 1:] if r["key_t"] is key)
+    a, _, res = r["step"]
+    out = res[5]
+    templates = (je.window, je.feats, je.pre, je.lidar, je.prior)
+    jargs = [_jax_like(t, x) for t, x in zip(templates, a[:5])]
+    jargs += [jnp.asarray(np_(x)) if isinstance(x, torch.Tensor) else x for x in a[5:17]]
+    jout = jest.fused_full_step(*jargs, a[17], je.cfg)
+    assert bool(out["is_key"]) == bool(jout[5]["is_key"]) == key
+    assert int(out["failed"]) == int(jout[5]["failed"]) == 0
+    np.testing.assert_allclose(np_(out["p"]), np_(jout[5]["p"]), atol=1e-4)
+    assert _rot_err(np_(out["q"]), np_(jout[5]["q"])) < 1e-4
+    w_t, w_j = res[0], jout[0]
+    np.testing.assert_allclose(np_(w_t.p), np_(w_j.p), atol=1e-4)
+    np.testing.assert_allclose(np_(w_t.v), np_(w_j.v), atol=1e-3)
+    assert _rot_err(np_(w_t.q), np_(w_j.q)) < 1e-4
+    for k in ("active", "start", "obs_valid", "feat_id"):
+        np.testing.assert_array_equal(np_(getattr(res[1], k)), np_(getattr(jout[1], k)), k)
+    Ja, Jb = np_(res[4].J).astype(np.float64), np_(jout[4].J).astype(np.float64)
+    assert np.abs(Ja.T @ Ja - Jb.T @ Jb).max() <= 1e-2 * np.abs(Jb.T @ Jb).max()
+    assert bool(res[4].valid) == bool(jout[4].valid)
+    np.testing.assert_allclose(np_(res[4].lin.p), np_(jout[4].lin.p), atol=1e-4)

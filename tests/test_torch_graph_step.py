@@ -2,7 +2,9 @@
 ops/linalg.sym_eigh (the eigensolver's dispatcher) against
 torch.linalg.eigh and the reference's jnp.linalg.eigh, the graph module's
 argument flattening, host constants and launch counting
-(utils/graphs.py), and the CUDA-only entry points refusing CPU tensors.
+(utils/graphs.py), graphs.cond (the port's lax.cond) outside a capture
+and under a mocked one, the branch-aware settlement of conditional
+launches, and the CUDA-only entry points refusing CPU tensors.
 The kernel itself and the graph replays are held on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 
@@ -11,6 +13,7 @@ the reference's eigh (another LAPACK path) the eigenvalues within 1e-5 of
 the largest and the reconstruction V diag(S) V^T within 1e-5 of max|A|
 (float32, n <= 157: a few ulps times sqrt(n)).
 """
+import contextlib
 import threading
 
 import jax.numpy as jnp
@@ -132,3 +135,170 @@ def test_pipeline_upload_on_cpu():
     x = np.arange(12, dtype=np.int16).reshape(4, 3)[:, ::2]
     t = _upload(x, torch.device("cpu"))
     assert t.dtype == torch.int16 and np.array_equal(t.numpy(), x)
+
+
+class _FakeBodies:
+    """cond_cuda.body replaced: records each body opened (its predicate's
+    value and negation) and closed, in order; yields a body handle."""
+
+    def __init__(self):
+        self.events = []
+
+    @contextlib.contextmanager
+    def __call__(self, pred, negate, pools):
+        self.events.append(("begin", bool(pred), negate))
+        yield len(self.events)
+        self.events.append(("end",))
+
+
+@pytest.fixture
+def fake_capture(monkeypatch):
+    """This thread's capture state mocked (torch's capture query, the
+    recording lists graphs.step sets up) and the conditional bodies
+    recorded instead of captured (the bodies run eagerly)."""
+    from vil_fusion_tpu_torch.ops.cuda import cond_cuda
+
+    bodies = _FakeBodies()
+    monkeypatch.setattr(cond_cuda, "body", bodies)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    for name in ("capturing", "cond_launches", "preds", "bodies", "body_pools"):
+        monkeypatch.setattr(graphs._tls, name, [], raising=False)
+    assert graphs.capturing()
+    return bodies
+
+
+def test_cond_outside_a_capture_selects(monkeypatch):
+    """graphs.cond with no capture under way runs both branches and selects
+    every leaf with torch.where (a leaf both return is taken as it is),
+    over nested NamedTuples and dicts; the branches must return one
+    structure."""
+    w = init_window(device="cpu")
+    calls = []
+
+    def t(w, d):
+        calls.append("t")
+        return w._replace(p=w.p + 1), {"a": d["a"] * 2, "b": d["b"]}
+
+    def f(w, d):
+        calls.append("f")
+        return w._replace(p=w.p - 1), {"a": d["a"] * 3, "b": d["b"]}
+
+    d = {"a": torch.arange(4.0), "b": torch.ones(2)}
+    for key in (True, False):
+        out = graphs.cond(torch.tensor(key), t, f, (w, d))
+        ref = (t if key else f)(w, d)
+        assert type(out[0]) is WindowState and out[1]["b"] is d["b"]
+        assert all(torch.equal(x, y) for x, y in zip(out[0], ref[0]))
+        assert torch.equal(out[1]["a"], ref[1]["a"])
+    assert calls == ["t", "f", "t", "t", "f", "f"]
+    with pytest.raises(ValueError, match="structures"):
+        graphs.cond(torch.tensor(True), lambda x: (x, x), lambda x: x, (torch.ones(2),))
+
+
+def test_cond_capture_opens_a_body_a_branch(fake_capture):
+    """While capturing, graphs.cond opens one IF body for the true branch
+    (on the predicate) and then one for the false branch (on its
+    negation), each closed before the next, and records the predicate and
+    both body handles for the capture."""
+    x = torch.arange(3.0)
+    pred = torch.tensor(True)
+    graphs.cond(pred, lambda a: a + 1, lambda a: a * 2, (x,))
+    assert fake_capture.events == [("begin", True, False), ("end",),
+                                   ("begin", True, True), ("end",)]
+    assert graphs._tls.preds == [pred] and graphs._tls.bodies == [1, 3]
+
+
+def test_cond_capture_copies_false_outputs_into_true_outputs(fake_capture):
+    """The false body copies its outputs into the true body's, which are
+    the node's result: the bodies ran eagerly here, so the result holds the
+    false branch's values, in the true branch's tensors."""
+    x = torch.arange(4.0)
+    held = []
+
+    def t(a):
+        held.append(a + 1)
+        return held[0], {"k": a * 0}
+
+    out = graphs.cond(torch.tensor(True), t, lambda a: (a * 10, {"k": a - 5}), (x,))
+    assert out[0] is held[0] and torch.equal(out[0], x * 10)
+    assert torch.equal(out[1]["k"], x - 5)
+    with pytest.raises(ValueError, match="structures"):
+        graphs.cond(torch.tensor(True), lambda a: a[:2] + 1, lambda a: a + 1, (x,))
+
+
+def test_cond_capture_clones_outputs_that_alias(fake_capture):
+    """A true output that is an operand, a view of one, or a tensor it
+    returns twice is cloned inside the body, so the false body's copy
+    writes no input of the step: the operands keep their values."""
+    x, y = torch.arange(4.0), torch.full((2,), 7.0)
+    out = graphs.cond(torch.tensor(True), lambda a, b: (a, b[:1], a),
+                      lambda a, b: (a * 2, b[1:] + 1, a * 3), (x, y))
+    assert torch.equal(x, torch.arange(4.0)) and torch.equal(y, torch.full((2,), 7.0))
+    assert torch.equal(out[0], x * 2) and torch.equal(out[1], y[1:] + 1)
+    assert torch.equal(out[2], x * 3)
+    assert len({o.untyped_storage().data_ptr() for o in out} | {
+        x.untyped_storage().data_ptr(), y.untyped_storage().data_ptr()}) == 5
+
+
+def test_cond_capture_tags_launches_by_branch(fake_capture):
+    """A launch recorded inside a body is kept with its branch (the cond's
+    index, 0 true / 1 false), apart from the launches outside any body,
+    which every replay counts; a cond nested in a body carries both."""
+    x = torch.ones(2)
+
+    def t(a):
+        graphs.record_launch(print, "t")
+        graphs.cond(torch.tensor(False), lambda b: graphs.record_launch(print, "tt") or b,
+                    lambda b: b * 2, (a,))
+        return a + 1
+
+    graphs.record_launch(print, "outside")
+    graphs.cond(torch.tensor(True), t, lambda a: graphs.record_launch(print, "f") or a * 2, (x,))
+    assert graphs._tls.capturing == [(print, ("outside",))]
+    assert [(a[0], c) for _, a, c in graphs._tls.cond_launches] == [
+        ("t", ((0, 0),)), ("tt", ((0, 0), (1, 0))), ("f", ((0, 1),))]
+
+
+class _Landed:
+    """A settlement's event stand-in: query() is True once `ready`."""
+
+    def __init__(self, ready):
+        self.ready = ready
+
+    def query(self):
+        return self.ready
+
+    def synchronize(self):
+        self.ready = True
+
+
+@pytest.mark.parametrize("flags", [(True, False), (False, False), (True, True)])
+def test_settle_counts_the_taken_bodies(flags):
+    """graphs.settle counts, for every replay whose predicates have landed,
+    the launches of the bodies it ran (each of a launch's (cond, branch)
+    tags taken: branch 0 where the predicate held, 1 where it did not) and
+    none of the others; a replay still in flight waits unless `wait`;
+    reset_counts drops the unsettled ones."""
+    seen = []
+
+    def settlement(ready):
+        s = object.__new__(graphs._Settlement)
+        s.launches = [(seen.append, ("t0",), ((0, 0),)), (seen.append, ("f0",), ((0, 1),)),
+                      (seen.append, ("t0 t1",), ((0, 0), (1, 0))),
+                      (seen.append, ("t0 f1",), ((0, 0), (1, 1)))]
+        s.host, s.event = torch.tensor(flags), _Landed(ready)
+        return s
+
+    want = {(True, False): ["t0", "t0 f1"], (False, False): ["f0"],
+            (True, True): ["t0", "t0 t1"]}[flags]
+    graphs.reset_counts()
+    later = settlement(False)
+    graphs._pending.extend([settlement(True), later])
+    assert graphs.settle() == 1 and seen == want
+    assert graphs.settle() == 0 and later in graphs._pending
+    assert graphs.settle(wait=True) == 1 and seen == want * 2 and not graphs._pending
+    assert sorted(x for _, (x,) in later.launches_of(taken=False)) == sorted(
+        {"t0", "f0", "t0 t1", "t0 f1"} - set(want))
+    graphs._pending.append(settlement(True))
+    graphs.reset_counts()
+    assert graphs.settle(wait=True) == 0 and seen == want * 2

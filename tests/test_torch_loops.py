@@ -275,3 +275,188 @@ def test_submap_icp_from_carried_state(fusion_pair):
     np.testing.assert_allclose(float(ft), float(fj), rtol=1e-2)
     tf.prewarm()  # the port's rare-event path runs on carried state too
     assert tf._pending_icp == []
+
+
+def _kabsch_svd(H):
+    """The reference's Kabsch (models/icp.py): V diag(1, 1, d) U^T of the
+    SVD H = U S V^T, d = sign det(V U^T), in float64 numpy."""
+    U, _, Vt = np.linalg.svd(H)
+    d = np.sign(np.linalg.det(Vt.T @ U.T))
+    return Vt.T @ np.diag([1.0, 1.0, d]) @ U.T
+
+
+@pytest.mark.parametrize("case", ["random", "near-planar", "reflected", "noisy"])
+def test_kabsch_rotation_matches_svd(case):
+    """ops/linalg.kabsch_rotation (Horn's quaternion by repeated squaring,
+    the capturable replacement of the reference's torch / jnp SVD) against
+    numpy's SVD Kabsch with the reflection fix: within 1e-9 in float64 and
+    2e-6 in float32 (the input rounded to float32) on random point pairs,
+    a near-planar cloud (one singular value 1e-6 of the others), a
+    reflected one (det H < 0, where the fix picks the proper rotation) and
+    heavy noise; always a rotation (R^T R = I within 1e-6, det 1)."""
+    rng = np.random.default_rng(["random", "near-planar", "reflected", "noisy"].index(case))
+    x = rng.normal(size=(200, 3))
+    if case == "near-planar":
+        x[:, 2] *= 1e-6
+    R_true = np.asarray(jlie.q2R(jlie.qnormalize(jnp.asarray(rng.normal(size=4)))), np.float64)
+    y = x @ R_true.T
+    if case == "reflected":
+        y = y * np.array([1.0, 1.0, -1.0])
+    if case == "noisy":
+        y = y + rng.normal(scale=2.0, size=y.shape)
+    xc, yc = x - x.mean(0), y - y.mean(0)
+    H = xc.T @ yc
+    want = _kabsch_svd(H)
+    if case == "reflected":
+        assert np.linalg.det(H) < 0
+    got = ticp.linalg.kabsch_rotation(torch.from_numpy(H)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-9)
+    got32 = ticp.linalg.kabsch_rotation(torch.from_numpy(H.astype(np.float32))).numpy()
+    np.testing.assert_allclose(got32, _kabsch_svd(H.astype(np.float32).astype(np.float64)),
+                               atol=2e-6)
+    np.testing.assert_allclose(got32.T @ got32, np.eye(3), atol=1e-6)
+    assert abs(np.linalg.det(got32) - 1.0) < 1e-6
+
+
+def test_kabsch_rotation_of_nothing_is_identity():
+    """No correspondence (H = 0, every ICP weight 0): the identity, as the
+    reference's SVD of a zero matrix gives (U = V = I, d = 1)."""
+    assert torch.equal(ticp.linalg.kabsch_rotation(torch.zeros(3, 3)), torch.eye(3))
+    U, _, Vt = (np.asarray(a) for a in jnp.linalg.svd(jnp.zeros((3, 3))))
+    np.testing.assert_array_equal(Vt.T @ U.T, np.eye(3))
+
+
+def _next_keyframe(jf, tf, k):
+    """Keyframe number `k` of fusion_pair's path (a pose and a scan)."""
+    scene = sim.RaycastScene()
+    R, p = _yaw_R(0.04 * k), np.array([10.0 + 2.5 * k, 0.5, 1.5])
+    pts, val = _scan_at(scene, R, p)
+    return sim.R_to_q(R).astype(np.float32), p.astype(np.float32), pts, val
+
+
+@pytest.mark.parametrize("first", [True, False], ids=["first", "not-first"])
+def test_keyframe_program_matches(fusion_pair, first):
+    """The port's _keyframe_program (its pure part through the step
+    wrapper's body on the CPU, then the three in-place row writes) against
+    the reference's jitted program on the same state: the first keyframe of
+    an empty fusion, and keyframe 6 after fusion_pair's six (the JAX state
+    carried over). Graph poses within 1e-5, the database's ring keys
+    (means) within rtol 1e-6, the rest of the graph and the database, the
+    clouds and the loop query's candidate and shift exact, its distance
+    within rtol 1e-6."""
+    jf, _ = fusion_pair
+    cfg = tgf.GlobalFusionConfig(**jf.cfg._asdict())
+    tf = tgf.GlobalFusion(cfg, device="cpu")
+    jcfg = jgf.GlobalFusionConfig(**jf.cfg._asdict())
+    jg, jdb = jpg.init_graph(cfg.node_capacity, cfg.loop_capacity), jsc.init_db(cfg.node_capacity)
+    jc = jnp.zeros((cfg.node_capacity, cfg.cloud_capacity, 3))
+    jv = jnp.zeros((cfg.node_capacity, cfg.cloud_capacity), bool)
+    i = 0
+    q_prev, p_prev = np.array([1.0, 0, 0, 0], np.float32), np.zeros(3, np.float32)
+    if not first:
+        state_io.global_fusion_load(tf, state_io.global_fusion_to_numpy(jf))
+        jg, jdb, jc, jv = jf.graph, jf.scdb, jf.clouds, jf.cloud_valid
+        i, q_prev, p_prev = jf.n_kf, jf.last_q, jf.last_p
+    assert jcfg == jf.cfg
+    q, p, pts, val = _next_keyframe(jf, tf, i)
+    if first:
+        q_prev, p_prev = q, p
+    jout = jgf._keyframe_program(jg, jdb, jc, jv, *(jnp.asarray(x) for x in (q_prev, p_prev, q, p)),
+                                 jnp.asarray(pts), jnp.asarray(val), jnp.int32(i), first)
+    tout = tgf._keyframe_program(tf.graph, tf.scdb, tf.clouds, tf.cloud_valid,
+                                 *(_t(x) for x in (q_prev, p_prev, q, p)), _t(pts), _t(val),
+                                 i, first)
+    a, b = state_io.to_numpy(jout[0]), state_io.to_numpy(tout[0])
+    for k in a:
+        if k in ("q", "p", "odo_q", "odo_p"):
+            np.testing.assert_allclose(b[k], a[k], atol=1e-5, err_msg=k)
+        else:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    a, b = state_io.to_numpy(jout[1]), state_io.to_numpy(tout[1])
+    for k in a:  # ring keys are means: rtol 1e-6, as test_scancontext_insert_and_detect_match
+        if k == "ring_key":
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    for x, y in zip(tout[2:4], jout[2:4]):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert int(tout[4]) == int(jout[4]) and int(tout[6]) == int(jout[6])
+    np.testing.assert_allclose(float(tout[5]), float(jout[5]), rtol=1e-6)
+
+
+def test_keyframe_values_write_nothing(fusion_pair):
+    """The keyframe program's pure part (what the card's graph replays)
+    leaves the graph, the database and the clouds as they were, and its
+    loop query equals detect_loop after an in-place insert."""
+    jf, _ = fusion_pair
+    tf = tgf.GlobalFusion(tgf.GlobalFusionConfig(**jf.cfg._asdict()), device="cpu")
+    state_io.global_fusion_load(tf, state_io.global_fusion_to_numpy(jf))
+    before = state_io.global_fusion_to_numpy(tf)
+    q, p, pts, val = _next_keyframe(jf, tf, tf.n_kf)
+    out = tgf._keyframe_values(tf.graph.q, tf.graph.p, tf.scdb, _t(jf.last_q), _t(jf.last_p),
+                               _t(q), _t(p), _t(pts), _t(val), torch.tensor(tf.n_kf),
+                               first=False, cap=tf.clouds.shape[1])
+    after = state_io.global_fusion_to_numpy(tf)
+    for k in ("clouds", "cloud_valid"):
+        np.testing.assert_array_equal(after[k], before[k])
+    for part in ("graph", "scdb"):
+        for k in before[part]:
+            np.testing.assert_array_equal(after[part][k], before[part][k])
+    db = tsc.add_keyframe(tsc.ScanContextDB(*(x.clone() for x in tf.scdb)), out[4])
+    for x, y in zip(out[5:8], tsc.detect_loop(db, out[4])):
+        assert torch.equal(x, y)
+
+
+def test_submap_icp_takes_number_leaves(fusion_pair):
+    """_submap_icp's body with i, j and yaw0 as 0-d tensors (how the card's
+    graph holds them) gives what it gives with host numbers, bit for bit."""
+    jf, _ = fusion_pair
+    tf = tgf.GlobalFusion(tgf.GlobalFusionConfig(**jf.cfg._asdict()), device="cpu")
+    state_io.global_fusion_load(tf, state_io.global_fusion_to_numpy(jf))
+    ks = torch.from_numpy(np.clip(np.arange(-2, 5), 0, 5))
+    dup = torch.zeros(7, dtype=torch.bool)
+    dup[1:] = ks[1:] == ks[:-1]
+    args = (tf.graph.q, tf.graph.p, tf.clouds, tf.cloud_valid, ks, dup)
+    a = tgf._submap_icp(*args, 5, 1, 0.2)
+    b = tgf._submap_icp_body(*args, torch.tensor(5, dtype=torch.int32),
+                             torch.tensor(1, dtype=torch.int32), torch.tensor(0.2))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_add_frame_from_tensors_or_host_arrays():
+    """GlobalFusion.add_frame fed the odometry poses as tensors and as host
+    arrays (what the pipeline passes) builds the same graph, database and
+    clouds, bit for bit."""
+    scene = sim.RaycastScene()
+    kw = dict(node_capacity=32, loop_capacity=4, cloud_capacity=512, submap_half_span=2)
+    fs = [tgf.GlobalFusion(tgf.GlobalFusionConfig(**kw), device="cpu") for _ in range(2)]
+    for i in range(4):
+        R, p = _yaw_R(0.05 * i), np.array([5.0 + 3.0 * i, 0.0, 1.5])
+        q = sim.R_to_q(R).astype(np.float32)
+        pts, val = _scan_at(scene, R, p)
+        fs[0].add_frame(q, p.astype(np.float32), _t(pts), _t(val), t=float(i))
+        fs[1].add_frame(torch.from_numpy(q), torch.from_numpy(p.astype(np.float32)), _t(pts),
+                        _t(val), t=float(i))
+    a, b = (state_io.global_fusion_to_numpy(f) for f in fs)
+    assert fs[0].n_kf == fs[1].n_kf == 4
+    for part in ("graph", "scdb"):
+        for k in a[part]:
+            np.testing.assert_array_equal(b[part][k], a[part][k], err_msg=k)
+    np.testing.assert_array_equal(b["clouds"], a["clouds"])
+    np.testing.assert_array_equal(b["cloud_valid"], a["cloud_valid"])
+
+
+def test_scancontext_with_keyframe_is_the_insert(revisit_scans):
+    """sc.with_keyframe (the keyframe graph's copy) equals the in-place
+    add_keyframe, and leaves its database as it was; also when full."""
+    scans, _ = revisit_scans
+    for cap, n in ((8, 3), (2, 3)):
+        db = tsc.init_db(cap, device="cpu")
+        for pts, val in scans[:n]:
+            desc = tsc.make_descriptor(_t(pts), _t(val))
+            before = [x.clone() for x in db]
+            new = tsc.with_keyframe(db, desc)
+            assert all(torch.equal(x, y) for x, y in zip(db, before))
+            db = tsc.add_keyframe(db, desc)
+            assert all(torch.equal(x, y) for x, y in zip(new, db))

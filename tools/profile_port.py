@@ -180,6 +180,7 @@ def main() -> int:
         step(i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    graphs.settle(wait=True)  # the conditional bodies' launches of the last replays
     print(f"  graph replays per frame: {({k: v / n for k, v in graphs.replays.items()})} "
           f"(steps that ran their body: {graphs.eager_calls}); kernel launches per frame "
           f"counted by the wrappers (replays included): "

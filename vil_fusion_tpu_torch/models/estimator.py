@@ -20,9 +20,11 @@ graph cannot hold) runs directly. Where the reference branches on device
 values with `lax.cond`:
   * `run_ba` (BA + failure detection) is a host flag, True on the steady
     path;
-  * the keyframe decision picks the marginalization path on the device:
-    both paths run and every field of the result is selected with
-    torch.where on the 0-d decision (`_marginalize_and_slide_select`).
+  * the keyframe decision picks the marginalization path with
+    `graphs.cond` (`_marginalize_and_slide_cond`): inside the captured step
+    a conditional node whose replay runs the taken path only; in the eager
+    body (the CPU, the warm-up calls) both paths run and every field is
+    selected with torch.where on the 0-d decision.
 No window tensor is written in place: every update makes a new tensor
 (window.set_row), so views taken before an update (the failure check's
 previous pose) keep their values.
@@ -350,7 +352,7 @@ def _fused_full_step_body(window: WindowState, feats: FeatureStore, pre: Stacked
     out_v = window.v[K - 1].clone()
 
     # --- marginalize + slide (keyframe vs non-keyframe path, on the device) ---
-    window, feats, pre, lidar, prior = _marginalize_and_slide_select(
+    window, feats, pre, lidar, prior = _marginalize_and_slide_cond(
         is_key, window, feats, pre, lidar, prior, cfg)
     outputs = dict(p=out_p, q=out_q, v=out_v, cost=cost, failed=failed, is_key=is_key)
     return window, feats, pre, lidar, prior, outputs
@@ -366,23 +368,15 @@ def _optimize(window, feats, pre, lidar, prior, cfg: ba.BAConfig):
     return ba.optimize(window, feats, pre, lidar, prior, cfg)
 
 
-def _select(cond, a, b):
-    """torch.where(cond, a, b) over equal (Named)tuples of tensors; a tensor
-    both sides share is taken as it is."""
-    if isinstance(a, tuple):
-        vals = [_select(cond, x, y) for x, y in zip(a, b)]
-        return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
-    return a if a is b else torch.where(cond, a, b)
-
-
-def _marginalize_and_slide_select(is_key, window, feats, pre, lidar, prior,
-                                  cfg: EstimatorConfig):
-    """Both marginalization paths, every field of (window, feats, pre,
-    lidar, prior) selected by the 0-d bool `is_key` on the device: the
-    result of the reference's lax.cond (estimator.py:380), with no host
-    read. The non-keyframe path's cost is paid on every frame."""
-    return _select(is_key, _marginalize_and_slide(True, window, feats, pre, lidar, prior, cfg),
-                   _marginalize_and_slide(False, window, feats, pre, lidar, prior, cfg))
+def _marginalize_and_slide_cond(is_key, window, feats, pre, lidar, prior,
+                                cfg: EstimatorConfig):
+    """The two marginalization paths under the 0-d bool `is_key`: the
+    reference's lax.cond (estimator.py:380), with no host read. Captured, a
+    conditional node (a replay runs one path); eager, both paths and a
+    torch.where of every field of (window, feats, pre, lidar, prior)."""
+    return graphs.cond(is_key, functools.partial(_marginalize_and_slide, True, cfg=cfg),
+                       functools.partial(_marginalize_and_slide, False, cfg=cfg),
+                       (window, feats, pre, lidar, prior))
 
 
 def _marginalize_and_slide(is_key: bool, window, feats, pre, lidar, prior,
@@ -514,6 +508,7 @@ class VILEstimator:
                                                   lidar_q_rel, lidar_p_rel, tsh)
             host = torch.cat([out["p"], out["q"], out["v"], out["cost"][None],
                               out["failed"].to(self.dtype)[None]]).cpu().numpy()
+            graphs.settle()  # the replay is done: count its taken branch's launches
             self.absorb_result(host[10], host[11])
             return host[0:3], host[3:7], host[7:10]
 

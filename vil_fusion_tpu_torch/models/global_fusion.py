@@ -11,9 +11,21 @@ are copied into pinned host memory with non_blocking copies behind a
 recorded CUDA event, and resolved only once `event.query()` says they have
 landed — a keyframe never waits for the device to drain (the reference's
 loop-detection and ICP workers are asynchronous to graph building too).
+Host values go up the same way (pinned memory, non_blocking, the buffer
+held with the record that waits for the copy), so no call waits for the
+frames in flight, but `flush`, `prewarm`, `poses` and the blocking polls.
+
+On a CUDA device the reference's jitted programs replay CUDA graphs
+(utils/graphs.step): the keyframe program's pure part ("keyframe_program":
+edge glue, node values, descriptor, the loop query on the database with the
+keyframe inserted, cloud subsample), whose three row writes (graph node,
+database row, cloud) then run in place on the device index; the submap ICP
+("submap_icp", keyed on the submap's shapes); the pose graph's relaxation
+("posegraph_optimize", one key a bucket).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -24,13 +36,18 @@ from vil_fusion_tpu_torch.models import icp as icp_mod
 from vil_fusion_tpu_torch.models import posegraph as pg
 from vil_fusion_tpu_torch.models import scancontext as sc
 from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.utils import graphs
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 
 class _HostCopy:
     """Asynchronous device -> host copy of a few tensors. On CUDA the copy
-    goes to pinned memory behind an event; on the CPU it is immediate."""
+    goes to pinned memory behind an event; on the CPU it is immediate.
+    `keep` holds the pinned buffers of uploads enqueued before the copy
+    until the record is dropped (after its event)."""
 
-    def __init__(self, *tensors):
+    def __init__(self, *tensors, keep=None):
+        self.keep = keep  # host buffers of uploads enqueued before this copy
         self._event = None
         if tensors[0].is_cuda:
             self.values = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -46,7 +63,8 @@ class _HostCopy:
         return self._event is None or self._event.query()
 
     def get(self):
-        if self._event is not None:
+        """The host values: waits for the copy unless it has landed."""
+        if self._event is not None and not self._event.query():
             self._event.synchronize()
         return self.values
 
@@ -59,52 +77,104 @@ def _linspace_idx(n: int, cap: int, device):
     return (j * (n - 1)) // max(cap - 1, 1)
 
 
-def _keyframe_program(graph, db, clouds, cloud_valid, q_prev_kf, p_prev_kf,
-                      q_dev, p_dev, pts, val, i: int, first: bool):
-    """The keyframe hot path: odometry-edge glue + graph node append +
-    ScanContext insert/detect + cloud subsample/store. `i` is the host
-    keyframe index. Graph, database and cloud store are updated in place."""
+def _upload(x, dtype, device):
+    """(tensor of the host array `x` as `dtype` on `device`, the pinned
+    buffer it came from or None). On the card the copy is non_blocking from
+    pinned memory, so it waits for nothing enqueued before it; the caller
+    keeps the buffer until a later event has passed the copy."""
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+    if device.type != "cuda":
+        return t.to(device), None
+    h = t.pin_memory()
+    return h.to(device, non_blocking=True), h
+
+
+def _row(x, i):
+    """x[i] for a host int or a 0-d int tensor `i` (a captured step's number
+    leaf): index_select reads no index on the host."""
+    if isinstance(i, torch.Tensor):
+        return x.index_select(0, i.reshape(1))[0]
+    return x[i]
+
+
+def _keyframe_values(gq, gp, db, q_prev_kf, p_prev_kf, q_dev, p_dev, pts, val, i,
+                     first: bool, cap: int):
+    """The pure part of the keyframe program: (q_abs, p_abs, q_rel, p_rel)
+    of the new node, its ScanContext descriptor, the loop query (cand,
+    dist, shift) against the database with that descriptor inserted, and
+    the cloud's `cap` subsampled rows with their validity. Writes nothing."""
     if first:
-        q_rel = torch.tensor([1.0, 0, 0, 0], dtype=clouds.dtype, device=clouds.device)
-        p_rel = torch.zeros(3, dtype=clouds.dtype, device=clouds.device)
+        q_rel = host_constant((1.0, 0.0, 0.0, 0.0), pts.dtype, pts.device)
+        p_rel = torch.zeros(3, dtype=pts.dtype, device=pts.device)
         q_abs, p_abs = q_dev, p_dev
     else:
         q_rel, p_rel = lie.pose_between((q_prev_kf, p_prev_kf), (q_dev, p_dev))
-        q_abs, p_abs = lie.pose_compose((graph.q[i - 1], graph.p[i - 1]), (q_rel, p_rel))
-    graph = pg.add_node(graph, q_abs, p_abs, q_rel, p_rel)
+        q_abs, p_abs = lie.pose_compose((_row(gq, i - 1), _row(gp, i - 1)), (q_rel, p_rel))
     desc = sc.make_descriptor(pts, val)
+    cand, dist, shift = sc.detect_loop(sc.with_keyframe(db, desc), desc)
+    idx = _linspace_idx(pts.shape[0], cap, pts.device)
+    return q_abs, p_abs, q_rel, p_rel, desc, cand, dist, shift, pts[idx], val[idx]
+
+
+def _keyframe_program(graph, db, clouds, cloud_valid, q_prev_kf, p_prev_kf,
+                      q_dev, p_dev, pts, val, i: int, first: bool, capture_lock=None):
+    """The keyframe hot path: odometry-edge glue + graph node append +
+    ScanContext insert/detect + cloud subsample/store. `i` is the host
+    keyframe index. Graph, database and cloud store are updated in place.
+    On the card the pure part replays its graph ("keyframe_program", keyed
+    on `first`, captured with `capture_lock` held); the three row writes
+    follow it on the device."""
+    fn = functools.partial(_keyframe_values, first=first, cap=clouds.shape[1])
+    args = (graph.q, graph.p, db, q_prev_kf, p_prev_kf, q_dev, p_dev, pts, val, i)
+    if graphs.use_graph(pts):
+        out = graphs.step("keyframe_program", fn, args, static=(first, clouds.shape[1]),
+                          lock=capture_lock)
+    else:
+        out = fn(*args)
+    q_abs, p_abs, q_rel, p_rel, desc, cand, dist, shift, rows, rows_valid = out
+    graph = pg.add_node(graph, q_abs, p_abs, q_rel, p_rel)
     db = sc.add_keyframe(db, desc)
-    cand, dist, shift = sc.detect_loop(db, desc)
-    idx = _linspace_idx(pts.shape[0], clouds.shape[1], pts.device)
-    clouds[i] = pts[idx]
-    cloud_valid[i] = val[idx]
+    clouds[i] = rows
+    cloud_valid[i] = rows_valid
     return graph, db, clouds, cloud_valid, cand, dist, shift
 
 
-def _submap_icp(qs, ps, clouds, cloud_valid, ks, dup, i: int, j: int, yaw0: float):
-    """Submap assembly around keyframe j + ICP verification of keyframe i.
-    `ks` is the fixed-length clamped index span around j; `dup` masks
-    clamp-duplicated entries."""
-    q_j, p_j = qs[j], ps[j]
+def _submap_icp_body(qs, ps, clouds, cloud_valid, ks, dup, i, j, yaw0):
+    """_submap_icp's body: `i`, `j` host ints or 0-d int tensors, `yaw0` a
+    host float or a 0-d tensor."""
+    q_j, p_j = _row(qs, j), _row(ps, j)
     q_rel, p_rel = lie.pose_between((q_j, p_j), (qs[ks], ps[ks]))  # (K, 4), (K, 3)
     tgt = (lie.qrot(q_rel[:, None, :], clouds[ks]) + p_rel[:, None, :]).reshape(-1, 3)
     tgtv = (cloud_valid[ks] & ~dup[:, None]).reshape(-1)
 
     # two initial guesses, keep the better fit: (a) the graph relative pose;
     # (b) the same translation with the yaw replaced by the SC shift estimate
-    q0, p0 = lie.pose_between((q_j, p_j), (qs[i], ps[i]))
+    q0, p0 = lie.pose_between((q_j, p_j), (_row(qs, i), _row(ps, i)))
     yaw_q0 = lie.R2ypr(lie.q2R(q0))[0] * (math.pi / 180.0)
-    yaw0_t = torch.as_tensor(yaw0, dtype=qs.dtype, device=qs.device)
+    yaw0_t = (yaw0.to(qs.dtype) if isinstance(yaw0, torch.Tensor)
+              else torch.full((), yaw0, dtype=qs.dtype, device=qs.device))
     z = torch.zeros_like(yaw0_t)
     q_corr = lie.so3_exp(torch.stack([z, z, yaw0_t - yaw_q0]))
     q0b = lie.qnormalize(lie.qmul(q_corr, q0))
 
-    src, srcv = clouds[i], cloud_valid[i]
+    src, srcv = _row(clouds, i), _row(cloud_valid, i)
     qa, pa, fa = icp_mod.icp_point2point(src, srcv, tgt, tgtv, q0, p0)
     qb, pb, fb = icp_mod.icp_point2point(src, srcv, tgt, tgtv, q0b, p0)
     pick_a = fa <= fb
     return (torch.where(pick_a, qa, qb), torch.where(pick_a, pa, pb),
             torch.minimum(fa, fb))
+
+
+def _submap_icp(qs, ps, clouds, cloud_valid, ks, dup, i: int, j: int, yaw0: float,
+                capture_lock=None):
+    """Submap assembly around keyframe j + ICP verification of keyframe i.
+    `ks` is the fixed-length clamped index span around j; `dup` masks
+    clamp-duplicated entries. On the card one graph replay ("submap_icp",
+    keyed on the submap's shapes; i, j and yaw0 are its number leaves)."""
+    args = (qs, ps, clouds, cloud_valid, ks, dup, i, j, yaw0)
+    if graphs.use_graph(qs):
+        return graphs.step("submap_icp", _submap_icp_body, args, lock=capture_lock)
+    return _submap_icp_body(*args)
 
 
 class GlobalFusionConfig(NamedTuple):
@@ -143,9 +213,9 @@ class GlobalFusion:
         self._pending_opt = 0
         self._pending_sc = []  # in-flight loop queries: (i, _HostCopy)
         self._pending_icp = []  # in-flight ICP verifications: (i, j, q, p, _HostCopy)
-
-    def _dev(self, x):
-        return torch.as_tensor(np.asarray(x), dtype=self.dtype).to(self.device)
+        # held while a graph of global fusion is captured (a pipeline whose
+        # visual-loop worker enqueues on the same device sets its step lock)
+        self.capture_lock = None
 
     @staticmethod
     def _host(x):
@@ -178,13 +248,16 @@ class GlobalFusion:
         if i >= cfg.node_capacity:
             return None  # graph full
 
+        # the four poses in one pinned, non-blocking upload
+        poses, pinned = _upload(np.concatenate(
+            [self.last_q if i else q_np, self.last_p if i else p_np, q_np, p_np]),
+            self.dtype, self.device)
         (self.graph, self.scdb, self.clouds, self.cloud_valid, cand, dist,
          shift) = _keyframe_program(
             self.graph, self.scdb, self.clouds, self.cloud_valid,
-            self._dev(self.last_q if i else q_np), self._dev(self.last_p if i else p_np),
-            self._dev(q_np), self._dev(p_np),
+            poses[0:4], poses[4:7], poses[7:11], poses[11:14],
             scan_points.to(self.device, self.dtype), scan_valid.to(self.device),
-            i, i == 0)
+            i, i == 0, self.capture_lock)
         self.last_q = q_np
         self.last_p = p_np
         self.kf_q_odom.append(q_np)
@@ -194,7 +267,7 @@ class GlobalFusion:
 
         # start the host copy of this keyframe's loop query now; resolve
         # queries only once their copies have landed
-        self._pending_sc.append((i, _HostCopy(cand, dist, shift)))
+        self._pending_sc.append((i, _HostCopy(cand, dist, shift, keep=pinned)))
         res_icp = self._poll_icp()
         res_sc = self._poll_sc()
         result = res_sc if res_sc is not None else res_icp
@@ -203,7 +276,8 @@ class GlobalFusion:
         # relaxation is a no-op until the first loop edge exists
         if self.loops_found and (
                 result is not None or self._pending_opt >= cfg.optimize_every):
-            self.graph = pg.optimize_bucketed(self.graph, self.n_kf)
+            self.graph = pg.optimize_bucketed(self.graph, self.n_kf,
+                                              capture_lock=self.capture_lock)
             self._pending_opt = 0
         return result
 
@@ -216,7 +290,7 @@ class GlobalFusion:
             return
         self._dispatch_icp(self.n_kf - 1, max(self.n_kf - 2, 0), 0.0)
         self._pending_icp.pop()[4].get()
-        g = pg.optimize_bucketed(self.graph, self.n_kf)
+        g = pg.optimize_bucketed(self.graph, self.n_kf, capture_lock=self.capture_lock)
         _HostCopy(g.p[:1]).get()
 
     def _poll_sc(self, block: bool = False) -> Optional[tuple]:
@@ -249,7 +323,8 @@ class GlobalFusion:
         res_icp = self._poll_icp(block=True)
         result = res_icp if res_icp is not None else res_sc
         if result is not None:
-            self.graph = pg.optimize_bucketed(self.graph, self.n_kf)
+            self.graph = pg.optimize_bucketed(self.graph, self.n_kf,
+                                              capture_lock=self.capture_lock)
             self._pending_opt = 0
         return result
 
@@ -262,11 +337,13 @@ class GlobalFusion:
                                j + cfg.submap_half_span + 1), 0, self.n_kf - 1)
         dup = np.zeros(len(ks), bool)
         dup[1:] = ks[1:] == ks[:-1]  # clamp duplicates (ks is nondecreasing)
+        ks_dev, ks_pinned = _upload(ks, torch.int64, self.device)
+        dup_dev, dup_pinned = _upload(dup, torch.bool, self.device)
         q_fit, p_fit, fitness = _submap_icp(
-            self.graph.q, self.graph.p, self.clouds, self.cloud_valid,
-            torch.as_tensor(ks, dtype=torch.int64).to(self.device),
-            torch.as_tensor(dup).to(self.device), i, j, yaw0)
-        self._pending_icp.append((i, j, q_fit, p_fit, _HostCopy(fitness)))
+            self.graph.q, self.graph.p, self.clouds, self.cloud_valid, ks_dev, dup_dev,
+            i, j, yaw0, self.capture_lock)
+        self._pending_icp.append((i, j, q_fit, p_fit,
+                                  _HostCopy(fitness, keep=(ks_pinned, dup_pinned))))
 
     def _poll_icp(self, block: bool = False) -> Optional[tuple]:
         """Accept every completed ICP verification whose fitness passes

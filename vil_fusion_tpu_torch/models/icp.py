@@ -2,13 +2,15 @@
 
 Port of vil_fusion_tpu/models/icp.py: exact 1-NN (K2 on the card) +
 weighted Kabsch per iteration, fixed iteration count, no early exit and no
-host read.
+host read. The Kabsch rotation is ops/linalg.kabsch_rotation (Horn's
+quaternion, the same rotation as the reference's SVD with its reflection
+fix), so a CUDA graph can hold the whole ICP.
 """
 from __future__ import annotations
 
 import torch
 
-from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.ops import lie, linalg
 from vil_fusion_tpu_torch.ops.cuda import knn_cuda as knn_ops  # CUDA kernels on the card, plain on CPU
 
 
@@ -36,11 +38,9 @@ def icp_point2point(src, src_valid, tgt, tgt_valid, q_init, p_init,
         X = (src_w - mu_s) * w[:, None]
         Y = nn - mu_t
         H = X.T @ Y
-        U, _, Vt = torch.linalg.svd(H)
-        # reflection fix: the result is independent of the SVD's sign choices
-        d = torch.sign(torch.linalg.det(Vt.T @ U.T))
-        S = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
-        R_d = Vt.T @ S @ U.T
+        # the reference's SVD Kabsch with its reflection fix, V diag(1, 1, d)
+        # U^T, from Horn's quaternion (torch.linalg.svd waits for the device)
+        R_d = linalg.kabsch_rotation(H)
         t_d = mu_t - R_d @ mu_s
         q_d = lie.R2q(R_d)
         q, p = lie.qnormalize(lie.qmul(q_d, q)), lie.qrot(q_d, p) + t_d

@@ -15,11 +15,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import functools
+
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
 from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.utils import graphs
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 
 class PoseGraph(NamedTuple):
@@ -74,12 +78,11 @@ def add_node(graph: PoseGraph, q_abs, p_abs, q_rel, p_rel) -> PoseGraph:
     return graph
 
 
-def add_loop(graph: PoseGraph, i, j, q_rel, p_rel) -> PoseGraph:
-    """Append a loop edge T_{i -> j} (in place)."""
+def add_loop(graph: PoseGraph, i: int, j: int, q_rel, p_rel) -> PoseGraph:
+    """Append a loop edge T_{i -> j} (in place; `i`, `j` host ints)."""
     k = _slot(graph.n_loops, graph.loop_i.shape[0])
-    dev = graph.loop_i.device
-    graph.loop_i.index_copy_(0, k, torch.as_tensor(i, dtype=torch.int32, device=dev).reshape(1))
-    graph.loop_j.index_copy_(0, k, torch.as_tensor(j, dtype=torch.int32, device=dev).reshape(1))
+    graph.loop_i.index_fill_(0, k, int(i))  # host ints: a fill, no upload
+    graph.loop_j.index_fill_(0, k, int(j))
     graph.loop_q.index_copy_(0, k, q_rel.reshape(1, 4))
     graph.loop_p.index_copy_(0, k, p_rel.reshape(1, 3))
     graph.loop_valid.index_fill_(0, k, True)
@@ -115,8 +118,8 @@ def _gather_edges(graph: PoseGraph, q, p):
     loop_ok = graph.loop_valid & (graph.loop_i < graph.n_nodes) & (graph.loop_j < graph.n_nodes)
     valid = torch.cat([odo_valid, loop_ok])
     L = graph.loop_i.shape[0]
-    w = torch.cat([torch.as_tensor(ODO_W, dtype=dtype, device=dev).expand(N, 6),
-                   torch.as_tensor(LOOP_W, dtype=dtype, device=dev).expand(L, 6)])
+    w = torch.cat([host_constant(ODO_W, dtype, dev).expand(N, 6),
+                   host_constant(LOOP_W, dtype, dev).expand(L, 6)])
     ei = torch.clamp(ei, min=0)
     return ei, ej, q_m, p_m, w, valid
 
@@ -125,8 +128,24 @@ _edge_jacobian = vmap(jacfwd(_edge_residual))
 _edge_residual_v = vmap(_edge_residual)
 
 
-def optimize(graph: PoseGraph, gn_iters: int = 6, cg_iters: int = 32) -> PoseGraph:
-    """Batched GN over all nodes (the isamUpdate replacement)."""
+def optimize(graph: PoseGraph, gn_iters: int = 6, cg_iters: int = 32,
+             capture_lock=None) -> PoseGraph:
+    """Batched GN over all nodes (the isamUpdate replacement). On the card
+    one graph replay ("posegraph_optimize", keyed on the iteration counts and
+    the graph's shapes: one key a bucket of optimize_bucketed, captured with
+    `capture_lock` held), the reference's jit with static gn_iters /
+    cg_iters."""
+    if graphs.use_graph(graph.p):
+        body = functools.partial(_optimize_body, gn_iters=gn_iters, cg_iters=cg_iters)
+        q, p = graphs.step("posegraph_optimize", body, (graph,), static=(gn_iters, cg_iters),
+                           lock=capture_lock)
+    else:
+        q, p = _optimize_body(graph, gn_iters, cg_iters)
+    return graph._replace(q=q, p=p)
+
+
+def _optimize_body(graph: PoseGraph, gn_iters: int, cg_iters: int):
+    """optimize's (q, p), eagerly."""
     N = graph.q.shape[0]
     dtype, dev = graph.p.dtype, graph.p.device
     node_active = (torch.arange(N, device=dev) < graph.n_nodes).to(dtype)[:, None]
@@ -198,11 +217,12 @@ def optimize(graph: PoseGraph, gn_iters: int = 6, cg_iters: int = 32) -> PoseGra
             r_cg, rz = r_new, rz_new
         x = torch.clamp(x, -1.0, 1.0)
         q, p = lie.pose_retract((q, p), x * node_active)
-    return graph._replace(q=q, p=p)
+    return q, p
 
 
 def optimize_bucketed(graph: PoseGraph, n_active: int, gn_iters: int = 6,
-                      cg_iters: int = 32, min_bucket: int = 64) -> PoseGraph:
+                      cg_iters: int = 32, min_bucket: int = 64,
+                      capture_lock=None) -> PoseGraph:
     """optimize() on the smallest power-of-2 node slice covering the active
     nodes: GN/PCG cost is linear in the node capacity, so a 50-keyframe
     graph is not solved inside a 2048-slot buffer. `n_active` is the
@@ -212,10 +232,10 @@ def optimize_bucketed(graph: PoseGraph, n_active: int, gn_iters: int = 6,
     while bucket < min(n_active, cap):
         bucket *= 2
     if bucket >= cap:
-        return optimize(graph, gn_iters, cg_iters)
+        return optimize(graph, gn_iters, cg_iters, capture_lock)
     sub = graph._replace(q=graph.q[:bucket], p=graph.p[:bucket],
                          odo_q=graph.odo_q[:bucket], odo_p=graph.odo_p[:bucket])
-    out = optimize(sub, gn_iters, cg_iters)
+    out = optimize(sub, gn_iters, cg_iters, capture_lock)
     q = graph.q.clone()
     p = graph.p.clone()
     q[:bucket] = out.q

@@ -7,7 +7,7 @@ search against the candidates.
 
 The database is updated in place (`add_keyframe` writes the slot at
 `count` and bumps `count`, all on the device with no host read) and the
-same ScanContextDB is returned.
+same ScanContextDB is returned; `with_keyframe` makes the updated copy.
 """
 from __future__ import annotations
 
@@ -59,18 +59,33 @@ def ring_key(desc):
     return torch.mean(desc, dim=-1)
 
 
+def _insert_slot(db: ScanContextDB, desc):
+    """(whether the DB has room, the slot (1,) int64, the row to write): a
+    full DB writes its last row again."""
+    cap = db.desc.shape[0]
+    ok = db.count < cap
+    i = torch.clamp(db.count, max=cap - 1).to(torch.int64).reshape(1)
+    return ok, i, torch.where(ok, desc, db.desc.index_select(0, i)[0])
+
+
 def add_keyframe(db: ScanContextDB, desc) -> ScanContextDB:
     """Insert at `count` in place; a full DB drops the insert (clamping the
     index while growing `count` would leave the current query in the last
     slot and defeat the recency exclusion)."""
-    cap = db.desc.shape[0]
-    ok = db.count < cap
-    i = torch.clamp(db.count, max=cap - 1).to(torch.int64).reshape(1)
-    desc_w = torch.where(ok, desc, db.desc.index_select(0, i)[0])
+    ok, i, desc_w = _insert_slot(db, desc)
     db.desc.index_copy_(0, i, desc_w[None])
     db.ring_key.index_copy_(0, i, ring_key(desc_w)[None])
     db.count.add_(ok.to(db.count.dtype))
     return db
+
+
+def with_keyframe(db: ScanContextDB, desc) -> ScanContextDB:
+    """A new ScanContextDB: `db` after add_keyframe(db, desc), which is
+    left as it is."""
+    ok, i, desc_w = _insert_slot(db, desc)
+    return ScanContextDB(desc=db.desc.index_copy(0, i, desc_w[None]),
+                         ring_key=db.ring_key.index_copy(0, i, ring_key(desc_w)[None]),
+                         count=db.count + ok.to(db.count.dtype))
 
 
 def detect_loop(db: ScanContextDB, query):
@@ -108,8 +123,9 @@ def best_candidate(desc, ring_keys, usable, query):
     dist = 1.0 - torch.sum(cos, dim=-1) / n_cols  # (Ncand, S)
     dist_min, shift_arg = torch.min(dist, dim=-1)
     dist_min = torch.where(cand_ok, dist_min, torch.full_like(dist_min, float("inf")))
-    b = torch.argmin(dist_min)
-    return cand[b], dist_min[b], shift_arg[b]
+    b = torch.argmin(dist_min).reshape(1)  # read by index_select: x[b] reads b on the host
+    return (cand.index_select(0, b)[0], dist_min.index_select(0, b)[0],
+            shift_arg.index_select(0, b)[0])
 
 
 def shift_to_yaw(shift):

@@ -184,3 +184,58 @@ def sym_eigh(A):
     from vil_fusion_tpu_torch.ops.cuda import eigh_cuda
 
     return eigh_cuda.eigh(A)
+
+
+def _horn_basis():
+    """C (3, 3, 4, 4) with Horn's 4 x 4 matrix N = sum_ab S_ab C[a, b] of a
+    cross-covariance S (Horn 1987, quaternion order w, x, y, z)."""
+    import numpy as np
+
+    C = np.zeros((3, 3, 4, 4))
+    x, y, z = 0, 1, 2
+    for i, j, terms in ((0, 0, ((x, x, 1), (y, y, 1), (z, z, 1))),
+                        (0, 1, ((y, z, 1), (z, y, -1))), (0, 2, ((z, x, 1), (x, z, -1))),
+                        (0, 3, ((x, y, 1), (y, x, -1))),
+                        (1, 1, ((x, x, 1), (y, y, -1), (z, z, -1))),
+                        (1, 2, ((x, y, 1), (y, x, 1))), (1, 3, ((z, x, 1), (x, z, 1))),
+                        (2, 2, ((x, x, -1), (y, y, 1), (z, z, -1))),
+                        (2, 3, ((y, z, 1), (z, y, 1))),
+                        (3, 3, ((x, x, -1), (y, y, -1), (z, z, 1)))):
+        for a, b, s in terms:
+            C[a, b, i, j] = C[a, b, j, i] = s
+    return C
+
+
+_HORN = _horn_basis()
+
+
+def kabsch_rotation(H, squarings: int = 24):
+    """The rotation R maximizing tr(R H^T) over SO(3) for the 3 x 3
+    cross-covariance H = sum_k x_k y_k^T (so y ~ R x): the Kabsch solution
+    V diag(1, 1, sign det(V U^T)) U^T of H = U S V^T, the reflection fix
+    included, which the reference takes from jnp.linalg.svd. Here it is the
+    quaternion of the largest eigenvalue of Horn's symmetric 4 x 4 matrix N
+    (a quaternion spans SO(3) only, hence no reflection), in float64 by
+    repeated squaring of N + ||N|| I (eigenvalues >= 0; `squarings`
+    squarings raise the eigenvalue ratio to the power 2^squarings: 24
+    separate a gap of 1e-6 of the largest), normalized by the trace every
+    three; the eigenvector is the column of the largest diagonal entry. A
+    fixed count of small matmuls with no host read and no library solver,
+    so a CUDA graph holds it (torch.linalg.svd waits for the device). H = 0
+    gives the identity, as the SVD's does. Returns R in H's dtype."""
+    from vil_fusion_tpu_torch.ops import lie
+    from vil_fusion_tpu_torch.utils.graphs import host_constant
+
+    dev = H.device
+    N = torch.einsum("ab,abij->ij", H.to(torch.float64),
+                     host_constant(_HORN, torch.float64, dev))
+    B = N + (torch.linalg.vector_norm(N) + 1e-300) * host_constant(
+        torch.eye(4).tolist(), torch.float64, dev)
+    for k in range(squarings):
+        if k % 3 == 0:
+            B = B / torch.trace(B)
+        B = B @ B
+    B = B / torch.trace(B)
+    col = B.index_select(1, torch.argmax(torch.diagonal(B)).reshape(1))[:, 0]
+    q = col / torch.linalg.vector_norm(col)
+    return lie.q2R(q).to(H.dtype)

@@ -564,6 +564,8 @@ class VILFusionPipeline:
             self._vl_lock = threading.Lock()
             self._vl_step_lock = threading.Lock()
             self.estimator.capture_lock = self._vl_step_lock
+            if self.fusion is not None:
+                self.fusion.capture_lock = self._vl_step_lock
             self._vl_jobs: Optional[queue.Queue] = None
             self._vl_results: queue.Queue = queue.Queue()
             self._vl_idle = threading.Event()
@@ -1018,6 +1020,8 @@ class VILFusionPipeline:
         if rec["event"] is not None:
             with GLOBAL_TIMERS.timed("frame_wait"):  # the host's one wait of the frame
                 rec["event"].synchronize()
+        # the replays done by now count the launches of their taken branches
+        graphs.settle()
         host = [h.numpy() for h in rec["fetch"]]
         p_est, q_est, v_est = host[0], host[1], host[2]
         if rec["gen"] == self._gen:

@@ -33,9 +33,20 @@ kernels become part of the outer graph, and no second capture is started
 (CUDA refuses a nested one). Inside `with inline():` every step of this
 thread runs its eager body (to hold a graph against it).
 
+`cond(pred, true_fn, false_fn, operands)` is the port's `lax.cond`: while
+this thread captures through `step` it records a conditional node (two IF
+bodies, on `pred` and on its negation), so a replay runs the taken branch
+only; elsewhere (the CPU, the warm-up calls, the eager bodies) both
+branches run and torch.where selects, with no host read.
+
 Kernel wrappers count their launches through `record_launch`: while this
 thread captures, a launch is recorded and counted again at each replay of
-the graph (the replay launches it), else it is counted at once.
+the graph (the replay launches it), else it is counted at once. A launch
+recorded inside a conditional body counts only at the replays that ran the
+body: a replay copies its predicates into pinned memory behind an event,
+and `settle()` counts those launches once the copy has landed (the
+pipeline calls it where it reads the frame's results anyway; it never
+waits unless asked to).
 `host_constant` gives a step the tensors it would otherwise copy from host
 data on every call (a blocking copy on a CUDA device, and not allowed while
 capturing): made once per (values, dtype, device).
@@ -92,12 +103,128 @@ def capturing() -> bool:
 
 def record_launch(count: Callable, *args):
     """A kernel wrapper's launch count, `count(*args)`: recorded while this
-    thread captures a graph through `step` (and counted at each replay),
-    else counted now."""
-    if capturing():
-        _tls.capturing.append((count, args))
-    else:
+    thread captures a graph through `step` (and counted at each replay, or
+    inside a conditional body at each replay that ran the body), else
+    counted now."""
+    if not capturing():
         count(*args)
+    elif getattr(_tls, "branch", None):
+        _tls.cond_launches.append((count, args, tuple(_tls.branch)))
+    else:
+        _tls.capturing.append((count, args))
+
+
+# -- conditional nodes ---------------------------------------------------------
+
+def _select(pred, a: list, b: list) -> list:
+    """torch.where(pred, x, y) leaf by leaf; a leaf both sides share is
+    taken as it is."""
+    return [x if x is y else torch.where(pred, x, y) for x, y in zip(a, b)]
+
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable, operands: tuple):
+    """true_fn(*operands) where the 0-d bool `pred` holds, else
+    false_fn(*operands): the reference's lax.cond. Both functions are pure
+    and return the same structure of tensors (shapes and dtypes alike).
+
+    While this thread captures through `step`: a conditional node, two IF
+    bodies (on `pred`, then on its negation) recorded by ops/cuda/cond_cuda
+    (csrc/cond.cu); a replay runs the taken body only. The false body
+    copies its outputs into the true body's, which hold the result after
+    the node; a true output that shares storage with an operand or with an
+    earlier output is cloned first, so that copy writes no input of the
+    step. A failed capture raises. Elsewhere both functions run and every
+    output is selected with torch.where on `pred` (nothing is read on the
+    host)."""
+    if not capturing():
+        leaves_t: list = []
+        spec = _flatten(true_fn(*operands), leaves_t)
+        leaves_f: list = []
+        if _flatten(false_fn(*operands), leaves_f) != spec:
+            raise ValueError("graphs.cond: the branches return different structures")
+        return _unflatten(spec, iter(_select(pred, leaves_t, leaves_f)))
+    from vil_fusion_tpu_torch.ops.cuda import cond_cuda
+
+    ops: list = []
+    _flatten(operands, ops)
+    storages = {x.untyped_storage().data_ptr() for x in ops if isinstance(x, torch.Tensor)}
+    k = len(_tls.preds)
+    _tls.preds.append(pred)
+    spec, outs = None, None
+    for branch, fn in enumerate((true_fn, false_fn)):
+        with cond_cuda.body(pred, branch == 1, _tls.body_pools) as body:
+            _tls.bodies.append(body)
+            _tls.branch = getattr(_tls, "branch", []) + [(k, branch)]
+            try:
+                leaves: list = []
+                s = _flatten(fn(*operands), leaves)
+                if any(not isinstance(x, torch.Tensor) for x in leaves):
+                    raise TypeError("graphs.cond: a branch returned a leaf that is no tensor")
+                if branch == 0:
+                    spec, outs, seen = s, [], set(storages)
+                    for x in leaves:
+                        ptr = x.untyped_storage().data_ptr()
+                        outs.append(x.clone() if ptr in seen else x)
+                        seen.add(ptr)
+                else:
+                    if s != spec or any(a.shape != b.shape or a.dtype != b.dtype
+                                        for a, b in zip(outs, leaves)):
+                        raise ValueError("graphs.cond: the branches return different "
+                                         "structures")
+                    for a, b in zip(outs, leaves):
+                        a.copy_(b)
+            finally:
+                _tls.branch = _tls.branch[:-1]
+    return _unflatten(spec, iter(outs))
+
+
+class _Settlement:
+    """The conditional launches of one replay: its predicates copied into
+    pinned memory behind an event; `ready()` once they have landed."""
+
+    def __init__(self, preds: list, launches: list):
+        self.launches = launches
+        self.host = torch.empty((len(preds),), dtype=torch.bool, pin_memory=True)
+        for i, p in enumerate(preds):
+            self.host[i:i + 1].copy_(p.reshape(1), non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def ready(self) -> bool:
+        return self.event.query()
+
+    def launches_of(self, taken: bool = True, wait: bool = False) -> list:
+        """(count, args) of the launches in the bodies this replay ran
+        (`taken`) or skipped."""
+        if wait:
+            self.event.synchronize()
+        flags = self.host.tolist()
+        return [(c, a) for c, a, conds in self.launches
+                if all(flags[i] == (b == 0) for i, b in conds) == taken]
+
+
+_pending: list = []  # replays whose conditional launches are not counted yet
+_pending_lock = threading.Lock()
+
+
+def settle(wait: bool = False) -> int:
+    """Count the conditional launches of every replay whose predicates have
+    landed on the host (with `wait`, of every replay: a host wait).
+    Returns the replays settled."""
+    with _pending_lock:
+        done = [s for s in _pending if wait or s.ready()]
+        for s in done:
+            _pending.remove(s)
+    for s in done:
+        for count, a in s.launches_of(wait=wait):
+            count(*a)
+    return len(done)
+
+
+def last_settlement():
+    """The settlement of this thread's last replay (None where its graph
+    holds no conditional node)."""
+    return getattr(_tls, "last_settlement", None)
 
 
 def _freeze(x):
@@ -165,28 +292,34 @@ def _signature(x):
     raise TypeError(f"graphs.step takes tensors and numbers as leaves, got {type(x)}")
 
 
-def _graph_nodes(graph) -> Optional[dict]:
-    """Nodes of a captured graph by type (kernel, memcpy, memset, other),
-    through libcuda's cuGraphGetNodes; None where this torch does not
-    keep the graph."""
+def _graph_nodes(graph, bodies=()) -> Optional[dict]:
+    """Nodes of a captured graph by type (kernel, memcpy, memset,
+    conditional, other), its conditional bodies' included ("in_bodies":
+    theirs alone), through libcuda's cuGraphGetNodes; None where this torch
+    does not keep the graph or a body could not be read."""
     try:
         raw = graph.raw_cuda_graph()
     except (AttributeError, RuntimeError):
         return None
+    if any(b is None for b in bodies):
+        return None
     drv = ctypes.CDLL("libcuda.so.1")
-    n = ctypes.c_size_t(0)
-    if drv.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n)) != 0:
-        return None
-    nodes = (ctypes.c_void_p * n.value)()
-    if drv.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(n)) != 0:
-        return None
-    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}
-    out = {"total": int(n.value)}
-    t = ctypes.c_int(0)
-    for node in nodes:
-        drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
-        k = kinds.get(t.value, "other")
-        out[k] = out.get(k, 0) + 1
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset", 13: "conditional"}
+    out = {"total": 0, "in_bodies": 0}
+    for g in (raw, *bodies):
+        n = ctypes.c_size_t(0)
+        if drv.cuGraphGetNodes(ctypes.c_void_p(g), None, ctypes.byref(n)) != 0:
+            return None
+        nodes = (ctypes.c_void_p * n.value)()
+        if drv.cuGraphGetNodes(ctypes.c_void_p(g), nodes, ctypes.byref(n)) != 0:
+            return None
+        out["total"] += int(n.value)
+        out["in_bodies"] += int(n.value) if g != raw else 0
+        t = ctypes.c_int(0)
+        for node in nodes:
+            drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+            k = kinds.get(t.value, "other")
+            out[k] = out.get(k, 0) + 1
     return out
 
 
@@ -202,8 +335,9 @@ def _check_device(name: str, leaves: list) -> torch.device:
 class CapturedStep:
     """fn(*args) captured once as a CUDA graph and replayed (module
     docstring). `stats`: warm-up, capture and instantiation seconds, the
-    graph's nodes by type and the device memory the capture reserved (its
-    private pool's new segments, MiB)."""
+    graph's nodes by type, the device memory the capture reserved (its
+    private pool's new segments, MiB) and its static argument buffers'
+    (MiB)."""
 
     def __init__(self, name: str, fn: Callable, args: tuple, warmup: int = 2,
                  lock=None):
@@ -236,14 +370,17 @@ class CapturedStep:
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
             except TypeError:
                 graph = torch.cuda.CUDAGraph()
-            _tls.capturing = []
+            _tls.capturing, _tls.cond_launches, _tls.preds = [], [], []
+            _tls.bodies, _tls.body_pools = [], []
             try:
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                     out = fn(*static_args)
             finally:
                 self.launches, _tls.capturing = _tls.capturing, None
+                self.cond_launches, self.preds = _tls.cond_launches, _tls.preds
+                self.body_pools, bodies = _tls.body_pools, _tls.bodies
             t2 = time.perf_counter()
-            nodes = _graph_nodes(graph)
+            nodes = _graph_nodes(graph, bodies)
             if hasattr(graph, "instantiate"):
                 graph.instantiate()
             torch.cuda.synchronize()
@@ -256,7 +393,9 @@ class CapturedStep:
         self.out = out_leaves
         self.stats = dict(name=name, warmup_s=t1 - t0, warmup_calls=warmup, capture_s=t2 - t1,
                           instantiate_s=t3 - t2, nodes=nodes,
-                          pool_mib=pool / 2**20)
+                          pool_mib=pool / 2**20,
+                          static_mib=sum(x.numel() * x.element_size()
+                                         for x in self.static) / 2**20)
 
     def __call__(self, *args):
         leaves: list = []
@@ -273,6 +412,12 @@ class CapturedStep:
             self.graph.replay()
             for count, a in self.launches:
                 count(*a)
+            settlement = None
+            if self.preds:  # counted by settle() once the predicates land
+                settlement = _Settlement(self.preds, self.cond_launches)
+                with _pending_lock:
+                    _pending.append(settlement)
+            _tls.last_settlement = settlement
             out = [o.clone() if isinstance(o, torch.Tensor) else o for o in self.out]
         with count_lock:
             replays[self.name] = replays.get(self.name, 0) + 1
@@ -309,8 +454,10 @@ def step(name: str, fn: Callable, args: tuple, static=(), lock=None):
 
 
 def reset_counts():
-    """Set the replay and eager-call counts to 0 (the captured graphs
-    stay)."""
+    """Set the replay and eager-call counts to 0, and drop the conditional
+    launches not settled yet (the captured graphs stay)."""
     with count_lock:
         replays.clear()
         eager_calls.clear()
+    with _pending_lock:
+        _pending.clear()
