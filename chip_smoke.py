@@ -91,7 +91,15 @@ Phases, any failure exits non-zero:
      down after the relocalization), no worker error, K2 launched at
      the densification shape (384 extra corners x the 19,200-point scan),
      and every steady frame's estimator step a graph replay (the frame's
-     graph, or the step's own);
+     graph, or the step's own); the worker's graphs (keyframe program, PnP
+     RANSAC, 4-DoF solve) replayed, each replay bit for bit its eager body,
+     a loop closure's 4-DoF solve one replay once its graph exists, the
+     worker's jobs by kind with host ms, their launches under torch.profiler
+     over frames 120-144 (a steady keyframe job: fewer than 150) and of the
+     last two loop-closing jobs run again after the lap, and the
+     lap's frames classed by what they ran (filling, initialization
+     attempt, initialization, a first body, a capture, replays) with their
+     host seconds;
   10. path "mask": mode "mask" on tests/test_pipeline.py:263's sequence with
      a moving textured object and its mask: at most 2 tracked features in
      the object's core on any frame, no restart, error < 0.5 m;
@@ -108,7 +116,8 @@ Phases, any failure exits non-zero:
      KITTI-scale circuit from a cold start (visual loop, sync_depth=2,
      frames rendered by TorchRaycast in the ring bus's producer thread): no
      restart, no worker error, nothing dropped, K1 and K2 launched, the
-     fusion keyframes' ATE and the lidar end error within 0.25 m;
+     fusion keyframes' ATE and the lidar end error within 0.25 m (global
+     fusion's and the visual-loop worker's graph replays printed);
   12. path "parallel": (a) K1 (surf, edge) and K2 (ICP) over a sequence
      axis in one launch on 8 different simulator maps, bit for bit against
      8 unbatched launches and with a database shared by every sequence,
@@ -116,8 +125,10 @@ Phases, any failure exits non-zero:
      sequences, CUDA-event ms beside 8 unbatched calls; (b)
      odometry_step_batched (torch.func.vmap of the step, one K1 launch a
      call for the batch) over 8 sequences of phase 4's scans, 5 + 10 steps,
+     a steady step one replay of its graph, bit for bit its eager body,
      poses within 1e-4 m of each sequence stepped alone, the K1 launches of a
-     batched step those of one sequence, aggregate frames/s; then 3 batched
+     batched step those of one sequence, aggregate frames/s beside one
+     sequence's replayed step; then 3 batched
      steps of the exact kNN (K2); (c) knn_sharded, detect_loop_sharded and
      optimize_sharded at world size 1 over NCCL against knn_exact,
      detect_loop (2,048 slots) and ba.optimize on phase 7's window after
@@ -149,6 +160,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -189,6 +201,8 @@ VIL_WARMUP, VIL_TIMED = 14, 20
 # global fusion's graphs (the reference's jitted keyframe program, submap ICP
 # and pose-graph relaxation): phases 7-8 hold every replay against its body
 FUSION_GRAPHS = ("keyframe_program", "submap_icp", "posegraph_optimize")
+# the visual-loop worker's graphs (phase 9, 11c)
+VL_GRAPHS = ("vl_keyframe", "vl_match", "pnp_ransac", "posegraph4dof_optimize")
 # phase 12's sharded BA takes phase 7's window after this many frames (all
 # of them). On such a weak window another reduction order can flip an LM
 # accept / reject: one earlier eigensolver's window put the 4 gloo ranks
@@ -229,6 +243,13 @@ COLD_REF_INIT_FRAME = 10
 LOOP_FRAMES = 390
 LOOP_VL = dict(capacity=512, keyframe_gap=0.75)
 LOOP_EXTRA_CAP = 384  # VisualLoopConfig.extra_cap: the densification's queries
+# phase 9 traces the worker's jobs of these lap frames with torch.profiler,
+# for the launches a job: steady keyframe jobs (the graphs captured, fewer
+# than 50 keyframes in the DB: no BoW query; past them this lap's repetitive
+# scene sends every keyframe on to verification); then the lap's last two
+# loop-closing jobs again; a steady keyframe job's gate
+LOOP_PROFILE_FRAMES = (120, 145)
+VL_JOB_LAUNCHES_MAX = 150
 LOOP_REF = dict(init_frame=10, sc_loops=3, visual_loops=4, loop_frame=363, ate_vio=2.0593,
                 ate_fs=0.1191, ate_loop=1.3958)
 # phase 10: tests/test_pipeline.py:263's mask run; MASK_REF the JAX
@@ -1824,10 +1845,22 @@ class _GraphRecorder:
     `_counts` reads them; None where the call also captured). `check`
     then runs each recorded step's eager body on the same arguments
     (graphs.inline()) and holds its outputs bit for bit, and its kernel
-    launches, against the replay's."""
+    launches, against the replay's. With `stage` (a worker thread's graphs)
+    a replay's launches are read from that launch_stage's counts."""
 
-    def __init__(self, kc, names):
-        self.kc, self.names, self.calls = kc, set(names), []
+    def __init__(self, kc, names, stage=None):
+        self.kc, self.names, self.calls, self.stage = kc, set(names), [], stage
+
+    def _launch_counts(self):
+        """The counts a recorded call's launches are read from: every
+        thread's (`_counts`), or with `stage` (a worker thread's calls,
+        beside the main thread's launches) the kNN launches counted under
+        that launch_stage."""
+        if self.stage is None:
+            return _counts(self.kc)
+        return {k: getattr(self.kc, w).launches_by_stage.get(self.stage, 0)
+                for k, w in (("K1", "knn_grouped"), ("K2", "knn_exact"), ("K3", "knn_sparse"),
+                             ("Morton keys", "morton_keys"))}
 
     def __enter__(self):
         from vil_fusion_tpu_torch.utils import graphs
@@ -1837,12 +1870,13 @@ class _GraphRecorder:
         def rec(name, fn, args, static=(), lock=None):
             if name not in self.names or graphs.capturing() or getattr(graphs._tls, "inline", 0):
                 return self.step(name, fn, args, static, lock)
-            n_cap, c0, r0 = len(graphs.captures), _counts(self.kc), graphs.replays.get(name, 0)
+            n_cap, r0 = len(graphs.captures), graphs.replays.get(name, 0)
+            c0 = self._launch_counts()
             # global fusion's stores are written in place after the call: keep
             # the arguments as the call saw them
             kept = _clone_leaves(args) if name in FUSION_GRAPHS else args
             out = self.step(name, fn, args, static, lock)
-            c1 = _counts(self.kc)
+            c1 = self._launch_counts()
             if graphs.replays.get(name, 0) == r0:  # a key's first call: the body ran
                 return out
             launched = ({k: c1[k] - c0[k] for k in c1} if len(graphs.captures) == n_cap
@@ -1869,7 +1903,7 @@ class _GraphRecorder:
             with self.graphs.inline():
                 ref = fn(*args)
             c1 = _counts(self.kc)
-            eager = {k: c1[k] - c0[k] for k in c1}
+            eager = {k: c1[k] - c0[k] for k in (c1 if launched is None else launched)}
             if launched is not None and settled is not None:
                 # the eager body runs both branches of a conditional node, the
                 # replay the taken one: add what it ran and what it skipped
@@ -1946,8 +1980,13 @@ def _by_name(caps) -> dict:
     out: dict = {}
     for c in caps:
         n, mib = out.get(c["name"], (0, 0.0))
-        out[c["name"]] = (n + 1, round(mib + c["pool_mib"] + c.get("static_mib", 0.0), 1))
+        out[c["name"]] = (n + 1, round(mib + (c["pool_mib"] or 0.0) + c.get("static_mib", 0.0),
+                                       1))
     return out
+
+
+def _mib(x) -> str:
+    return "n/a" if x is None else f"{x:.1f}"
 
 
 def _capture_report(label, new):
@@ -1959,8 +1998,10 @@ def _capture_report(label, new):
               f"conditional nodes, {nodes.get('in_bodies', 0)} nodes in their bodies), "
               f"warm-up {c['warmup_s']:.2f} s "
               f"({c['warmup_calls']} calls), capture {c['capture_s']:.2f} s, instantiation "
-              f"{c['instantiate_s']:.2f} s, pool {c['pool_mib']:.1f} MiB, static arguments "
-              f"{c.get('static_mib', 0.0):.1f} MiB", flush=True)
+              f"{c['instantiate_s']:.2f} s, pool {_mib(c['pool_mib'])} MiB, static arguments "
+              f"{c.get('static_mib', 0.0):.1f} MiB; captured on thread {c.get('thread')}, "
+              f"graph replays during the capture by name {c.get('replays_during')}",
+              flush=True)
 
 
 # launch, copy and wait calls of the CUDA runtime as torch.profiler names them
@@ -2301,15 +2342,106 @@ def _cold_start(dev, frame=None):
     return _counts(kc)
 
 
+def _frame_kind(before, after) -> str:
+    """What a lap frame ran, from the counters `_lap_counters` read before
+    and after it: "capture" (the frame's or the estimator's graph
+    captured), "first body" (a key's first call: the eager body),
+    "initialization" (the cold start succeeded: its SfM, alignment and BA),
+    "initialization attempt" (refused), "filling" (not initialized yet), or
+    "replay"."""
+    if after["captures"] > before["captures"]:
+        return "capture"
+    if after["first bodies"] > before["first bodies"]:
+        return "first body"
+    if after["initialized"] and not before["initialized"]:
+        return "initialization"
+    if after["attempts"] > before["attempts"]:
+        return "initialization attempt"
+    return "replay" if after["initialized"] else "filling"
+
+
+def _lap_counters(pipe) -> dict:
+    from vil_fusion_tpu_torch.utils import graphs
+
+    est = pipe.estimator
+    steps = ("vil_frame", "fused_full_step")
+    return {"captures": sum(c["name"] in steps for c in graphs.captures),
+            "first bodies": sum(graphs.eager_calls.get(k, 0) for k in steps),
+            "initialized": bool(est.initialized),
+            "attempts": sum(est.init_failures.values()) + int(est.initialized)}
+
+
+def _job_launches(prof) -> list:
+    """(launches, host waits, async copies) of every "visual_loop" range
+    (utils/tracing.py: one a worker job) in the trace, in time order: the
+    runtime calls of the range's thread that start inside it. Read from the
+    profiler's raw events (building its event tree takes minutes on a trace
+    of every thread)."""
+    import bisect
+
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    jobs, calls = [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name == "visual_loop" and e.device_type() == cpu:  # not its device range
+            jobs.append((e.start_ns(), e.end_ns(), e.start_thread_id()))
+        elif name in _LAUNCH_KEYS or name in _WAIT_KEYS or name == "cudaMemcpyAsync":
+            calls.setdefault(e.start_thread_id(), []).append((e.start_ns(), name))
+    for rows in calls.values():
+        rows.sort()
+    out = []
+    for t0, t1, tid in sorted(jobs):
+        rows = calls.get(tid, [])
+        inside = rows[bisect.bisect_left(rows, (t0, "")):bisect.bisect_right(rows, (t1, "~"))]
+        out.append((sum(n in _LAUNCH_KEYS for _, n in inside),
+                    sum(n in _WAIT_KEYS for _, n in inside),
+                    sum(n == "cudaMemcpyAsync" for _, n in inside)))
+    return out
+
+
+def _stats_ms(xs) -> str:
+    if not xs:
+        return "none"
+    xs = sorted(1e3 * x for x in xs)
+    return (f"{len(xs)} jobs, mean {sum(xs) / len(xs):.2f} / p50 {xs[len(xs) // 2]:.2f} / "
+            f"max {xs[-1]:.2f} ms")
+
+
+def _log_vl_jobs(pipe) -> list:
+    """A list that gets (kind, host s) for each visual-loop job `pipe`'s
+    worker runs from now on (its `_visual_loop_step` wrapped). kind:
+    "closed" (a loop closed), "verified" (verified, no loop), "keyframe"
+    (inserted, nothing verified) or "skipped" (nothing inserted)."""
+    log, db, inner = [], pipe.visual_loop, pipe._visual_loop_step
+
+    def step(*args, **kw):
+        n0, v0, t0 = db.n, db.stats["verify_attempts"], time.perf_counter()
+        drift = inner(*args, **kw)
+        kind = ("closed" if drift is not None else "skipped" if db.n == n0
+                else "verified" if db.stats["verify_attempts"] > v0 else "keyframe")
+        log.append((kind, time.perf_counter() - t0))
+        return drift
+
+    pipe._visual_loop_step = step
+    return log
+
+
 def _loop_path(dev, card, frame=None):
     """Phase 9: tests/test_e2e_loop.py's lap on the card, visual loop on its
     worker thread, sync_depth=2. Returns launch counts, with "K2 densify" the
     worker's K2 launches at the densification shape (extra corners x this
     frame's scan); fails on any of that test's asserts, on a worker error,
-    and if the densification never reached K2. `frame(i)` gives frame i
-    (cold_start_frame by default)."""
+    and if the densification never reached K2. The worker's graphs
+    (VL_GRAPHS) are recorded and every replay held bit for bit against its
+    body; the worker's jobs of LOOP_PROFILE_FRAMES are traced for their
+    launches (a steady keyframe job: fewer than VL_JOB_LAUNCHES_MAX); the
+    lap's frames are classed by what they ran (`_frame_kind`) with their
+    host seconds. `frame(i)` gives frame i (cold_start_frame by default)."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from vil_fusion_tpu_torch.models import global_fusion as gf
     from vil_fusion_tpu_torch.models import visual_loop as vl
@@ -2326,15 +2458,41 @@ def _loop_path(dev, card, frame=None):
                              vl_cfg=vl.VisualLoopConfig(**LOOP_VL), device=dev)
     _reset(kc)
     GLOBAL_TIMERS.reset()
-    marks = {}
+    job_log = _log_vl_jobs(pipe)
+    marks, kinds, state, jobs_put = {}, [], {}, []
+    put = pipe._vl_jobs.put
+    pipe._vl_jobs.put = lambda job: (jobs_put.append(job), put(job))[1]
+    n_caps = len(graphs.captures)
+    try:  # trace the worker's thread too
+        prof_cfg = dict(experimental_config=torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True))
+    except TypeError:
+        prof_cfg = {}
 
     def on_frame(i):
+        now, after = time.perf_counter(), _lap_counters(pipe)
+        kinds.append((_frame_kind(state["before"], after), now - state["t"]))
         if i in (LOOP_FRAMES // 4, LOOP_FRAMES // 2, 3 * LOOP_FRAMES // 4):
-            marks[i] = time.perf_counter() - t0
+            marks[i] = now - t0
             print(f"  loop: frame {i} after {marks[i]:.1f} s", flush=True)
+        if i + 1 in LOOP_PROFILE_FRAMES:  # the traced window's ends: no job in flight
+            pipe._vl_idle.wait(timeout=120.0)
+            torch.cuda.synchronize()
+            if i + 1 == LOOP_PROFILE_FRAMES[0]:
+                state["jobs0"], state["t_prof"] = len(job_log), time.perf_counter()
+                state["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA], **prof_cfg)
+                state["prof"].__enter__()
+            else:
+                state["prof"].__exit__(None, None, None)
+                state["jobs1"] = len(job_log)
+                state["t_prof"] = time.perf_counter() - state["t_prof"]
+        state["before"], state["t"] = _lap_counters(pipe), time.perf_counter()
 
     t0 = time.perf_counter()
-    r = loop_lap(pipe, sim, tum, traj, scene, LOOP_FRAMES, on_frame, frame)
+    state["before"], state["t"] = _lap_counters(pipe), t0
+    with _GraphRecorder(kc, VL_GRAPHS, stage="visual_loop") as rec:
+        r = loop_lap(pipe, sim, tum, traj, scene, LOOP_FRAMES, on_frame, frame)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     graphs.settle(wait=True)
@@ -2351,8 +2509,16 @@ def _loop_path(dev, card, frame=None):
               for k, w in (("K1", "knn_grouped"), ("K2", "knn_exact"), ("K3", "knn_sparse"))}
     stages = GLOBAL_TIMERS.summary()
     st = pipe.visual_loop.stats_summary()
+    vl_replays = {k: graphs.replays.get(k, 0) for k in VL_GRAPHS}
+    vl_first = {k: graphs.eager_calls.get(k, 0) for k in VL_GRAPHS}
+    log = list(job_log)
     print(f"  loop: {LOOP_FRAMES} frames in {wall:.1f} s ({LOOP_FRAMES / wall:.3f} frames/s, "
-          f"rendering included) [{card}]", flush=True)
+          f"rendering included; frames {LOOP_PROFILE_FRAMES[0]}-{LOOP_PROFILE_FRAMES[1] - 1} "
+          f"traced, {state.get('t_prof', 0.0):.1f} s of it) [{card}]", flush=True)
+    worker_caps = [c for c in graphs.captures[n_caps:] if c["name"] in VL_GRAPHS]
+    _capture_report("loop", worker_caps)
+    # the main thread's frame replays made while a worker capture ran
+    beside = {c["name"]: c["replays_during"].get("vil_frame", 0) for c in worker_caps}
     print(f"  loop: initialized at frame {r['init_frame']} (JAX on the CPU: "
           f"{LOOP_REF['init_frame']}), restarts {r['restarts']}, outputs {r['outputs']}, "
           f"ScanContext loops {r['sc_loops']} (JAX {LOOP_REF['sc_loops']}), visual loops "
@@ -2369,6 +2535,12 @@ def _loop_path(dev, card, frame=None):
     print("  loop: host ms per frame (GLOBAL_TIMERS mean / p50 / n): " + ", ".join(
         f"{k} {v['mean_ms']:.2f} / {v['p50_ms']:.2f} / {v['n']}" for k, v in stages.items()),
         flush=True)
+    print(f"  loop: the worker's graphs: replays {vl_replays}, first calls of a key "
+          f"{vl_first}, the main thread's vil_frame replays during each capture {beside}; "
+          f"its jobs by kind, host ms (mean / p50 / max): " + "; ".join(
+              f"{k} {_stats_ms([x for kk, x in log if kk == k])}"
+              for k in ("keyframe", "verified", "closed", "skipped")) + f" [{card}]",
+          flush=True)
     print(f"  loop: global fusion's graphs (ICP verifications, relaxations, keyframes): "
           f"replays { {k: graphs.replays.get(k, 0) for k in FUSION_GRAPHS} }, first calls "
           f"of a key { {k: graphs.eager_calls.get(k, 0) for k in FUSION_GRAPHS} }, loops "
@@ -2379,6 +2551,23 @@ def _loop_path(dev, card, frame=None):
           f"{counts['eigh']} (block) "
           f"+ {counts['eigh warp']} (warp)",
           flush=True)
+    by_kind: dict = {}
+    for k, dt in kinds:
+        n, tot = by_kind.get(k, (0, 0.0))
+        by_kind[k] = (n + 1, tot + dt)
+    print("  loop: frames by what they ran (frames, host s in all, mean ms; a frame's fetch "
+          "and pushes): " + "; ".join(
+              f"{k} {n}, {tot:.2f} s, {1e3 * tot / n:.1f}" for k, (n, tot) in by_kind.items())
+          + f" [{card}]", flush=True)
+    traced_jobs = _job_launches(state["prof"]) if "prof" in state else []
+    traced = log[state.get("jobs0", 0):state.get("jobs1", 0)]
+    per_kind: dict = {}
+    for (kind, dt), (n_l, n_w, n_c) in zip(traced, traced_jobs):
+        per_kind.setdefault(kind, []).append((n_l, n_w, n_c, round(1e3 * dt, 2)))
+    print(f"  loop: the worker's jobs of frames {LOOP_PROFILE_FRAMES[0]}-"
+          f"{LOOP_PROFILE_FRAMES[1] - 1} under torch.profiler: {len(traced_jobs)} traced for "
+          f"{len(traced)} logged; (launches incl. graph replays, host waits, async copies, "
+          f"host ms) a job by kind {per_kind} [{card}]", flush=True)
     bad = loop_gates(r, LOOP_FRAMES)
     if replays != pipe.estimator.fused_steps or not replays:
         bad.append(f"{replays} graph replays for {pipe.estimator.fused_steps} fused steps")
@@ -2387,8 +2576,42 @@ def _loop_path(dev, card, frame=None):
     if counts["K2 densify"] < 1:
         bad.append(f"the densification never launched K2 at ({pipe.visual_loop.cfg.extra_cap}, "
                    f"{n_pts}, 3): {calls}")
+    if vl_replays["vl_keyframe"] < 1 or vl_replays["pnp_ransac"] < 1:
+        bad.append(f"the worker's graphs replayed {vl_replays}")
+    if (any(c["thread"] == threading.main_thread().name for c in worker_caps)
+            or not any(beside.values())):
+        bad.append(f"no worker capture ran beside a main-thread vil_frame replay: "
+                   f"{[(c['name'], c['thread'], c['replays_during']) for c in worker_caps]}")
+    closes = sum(k == "closed" for k, _ in log)
+    if closes >= 2 and vl_replays["posegraph4dof_optimize"] != closes - 1:
+        bad.append(f"{closes} loop closures, 4-DoF solve replays {vl_replays}: each closure "
+                   f"after the first two calls of its key must be one replay")
+    steady = [x[0] for x in per_kind.get("keyframe", [])]
+    if len(traced_jobs) != len(traced) or not steady or max(steady) >= VL_JOB_LAUNCHES_MAX:
+        bad.append(f"traced jobs {len(traced_jobs)} for {len(traced)} logged; keyframe jobs' "
+                   f"launches {steady} (need at least one, each < {VL_JOB_LAUNCHES_MAX})")
     if bad:
         raise AssertionError("loop: " + "; ".join(bad))
+    rec.check("loop (the worker's graphs)")
+
+    # the lap's last two loop-closing jobs once more, traced (after the gates)
+    again = [job for job, (kind, _) in zip(jobs_put, log) if kind == "closed"][-2:]
+    n0, r0 = len(job_log), graphs.replays.get("posegraph4dof_optimize", 0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **prof_cfg) as prof:
+        for job in again:
+            pipe._vl_idle.clear()
+            put(job)
+            pipe._vl_idle.wait(timeout=120.0)
+        torch.cuda.synchronize()
+    redo = [(kind, *c, round(1e3 * dt, 2))
+            for (kind, dt), c in zip(job_log[n0:], _job_launches(prof))]
+    solves = graphs.replays.get("posegraph4dof_optimize", 0) - r0
+    print(f"  loop: the last {len(again)} loop-closing jobs run again under torch.profiler: "
+          f"(kind, launches incl. graph replays, host waits, async copies, host ms) {redo}; "
+          f"4-DoF solve replays {solves} [{card}]", flush=True)
+    if pipe.vl_errors or solves != sum(x[0] == "closed" for x in redo):
+        raise AssertionError(f"loop: the jobs run again: {redo}, 4-DoF replays {solves}, "
+                             f"worker errors {pipe.vl_errors}")
     _on_card({"hists": pipe.visual_loop.hists,
               **{f"graph4.{k}": v for k, v in pipe.visual_loop.graph._asdict().items()}}, dev)
     return counts
@@ -2610,7 +2833,10 @@ def _synthetic_path(dev, card):
           flush=True)
     print(f"  synthetic: global fusion's graphs: replays "
           f"{ {k: graphs.replays.get(k, 0) for k in FUSION_GRAPHS} }, first calls of a key "
-          f"{ {k: graphs.eager_calls.get(k, 0) for k in FUSION_GRAPHS} }", flush=True)
+          f"{ {k: graphs.eager_calls.get(k, 0) for k in FUSION_GRAPHS} }; the visual-loop "
+          f"worker's: replays { {k: graphs.replays.get(k, 0) for k in VL_GRAPHS} }, first "
+          f"calls of a key { {k: graphs.eager_calls.get(k, 0) for k in VL_GRAPHS} }",
+          flush=True)
     bad = []
     if rep["frames"] != SYNTH_FRAMES or rep["restarts"] or rep["vl_errors"] or st["dropped"]:
         bad.append(f"{rep['frames']} frames, restarts {rep['restart_log']}, worker errors "
@@ -2774,6 +3000,7 @@ def _batched_odometry_path(frames, dev, card, fps_dense):
     from vil_fusion_tpu_torch.models import lidar_odometry as lo
     from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
     from vil_fusion_tpu_torch.runtime.pipeline import _odom_config
+    from vil_fusion_tpu_torch.utils import graphs
 
     cfg = _odom_config(_rig(), None)
     n = BATCH_WARMUP + BATCH_TIMED
@@ -2784,17 +3011,24 @@ def _batched_odometry_path(frames, dev, card, fps_dense):
     states = lo.init_state_batched(cfg, BATCH_S, device=dev)
     _reset(kc)
     before_step, outs = [], []
-    for f in range(n):
-        if f == BATCH_WARMUP:
-            torch.cuda.synchronize()
-            t0, k1_before = time.perf_counter(), kc.knn_grouped.launches_batched
-        before_step.append(states)
-        states, out = lo.odometry_step_batched(states, pts[f], val[f], cfg, frame_count=f)
-        outs.append(out)
-    torch.cuda.synchronize()
+    with _GraphRecorder(kc, ("odometry_step_batched",)) as rec:
+        for f in range(n):
+            if f == BATCH_WARMUP:
+                torch.cuda.synchronize()
+                t0, k1_before = time.perf_counter(), kc.knn_grouped.launches_batched
+                r_before = graphs.replays.get("odometry_step_batched", 0)
+            before_step.append(states)
+            states, out = lo.odometry_step_batched(states, pts[f], val[f], cfg, frame_count=f)
+            outs.append(out)
+        torch.cuda.synchronize()
     dt_b = time.perf_counter() - t0
+    timed_replays = graphs.replays.get("odometry_step_batched", 0) - r_before
+    if timed_replays != BATCH_TIMED:
+        raise AssertionError(f"batched: {timed_replays} odometry_step_batched replays in "
+                             f"{BATCH_TIMED} timed steady steps (one a step)")
     k1_batched = (kc.knn_grouped.launches_batched - k1_before) / BATCH_TIMED
     counts = {"batched": {"K1 batched": kc.knn_grouped.launches_batched}}
+    rec.check("batched (odometry_step_batched)")  # its eager bodies launch K1 too: counted above
     _on_card({f"states.{k}": v for k, v in states._asdict().items()}, dev)
     # one more step of each kind under the profiler: the card's launches a step
     kern_b, dev_ms_b = _device_kernels(
@@ -2838,9 +3072,10 @@ def _batched_odometry_path(frames, dev, card, fps_dense):
         raise AssertionError(f"batched: end errors {gt_err} >= {END_ERR_BOUND_M} m")
     fps_b = BATCH_S * BATCH_TIMED / dt_b
     fps_1 = BATCH_S * BATCH_TIMED / dt_single
-    print(f"  batched: {BATCH_S} sequences x {BATCH_TIMED} timed steps after {BATCH_WARMUP}: "
-          f"{fps_b:.3f} frames/s aggregate (one sequence's odometry_step alone {fps_1:.3f} "
-          f"frames/s; phase 4's dense pipeline {fps_dense:.3f}) [{card}]", flush=True)
+    print(f"  batched: {BATCH_S} sequences x {BATCH_TIMED} timed steps after {BATCH_WARMUP} "
+          f"(one odometry_step_batched replay a step): {fps_b:.3f} frames/s aggregate (one "
+          f"sequence's odometry_step alone, a replay a step: {fps_1:.3f} frames/s; phase 4's "
+          f"dense pipeline {fps_dense:.3f}) [{card}]", flush=True)
     print(f"  batched: every step within {step_err:.3g} m of odometry_step from the same state "
           f"(tolerance {BATCH_POSE_TOL_M} m); end errors against the ground truth "
           f"{np.round(gt_err, 4).tolist()} m (bound {END_ERR_BOUND_M} m); K1 "
@@ -3338,7 +3573,7 @@ def _phases(card, dev, kc, pool, n_procs, t_start, save_window=None) -> int:
           f"{dict(collections.Counter(c['name'] for c in caps))}; warm-up "
           f"{sum(c['warmup_s'] for c in caps):.1f} s, capture {sum(c['capture_s'] for c in caps):.1f}"
           f" s, instantiation {sum(c['instantiate_s'] for c in caps):.1f} s, pools "
-          f"{sum(c['pool_mib'] for c in caps):.0f} MiB, static arguments "
+          f"{sum(c['pool_mib'] or 0.0 for c in caps):.0f} MiB, static arguments "
           f"{sum(c.get('static_mib', 0.0) for c in caps):.0f} MiB; by name (graphs, pools + "
           f"static MiB) {_by_name(caps)}; the card's peak reserved memory "
           f"{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB [{card}]", flush=True)

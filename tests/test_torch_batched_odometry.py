@@ -181,3 +181,53 @@ def test_plain_batched_knn(grouped, form, nq, nd, k):
         for got, want in ((d[s], d1), (i[s], i1), (d_vm[s], d1), (i_vm[s], i1),
                           (d_sh[s], d2), (i_sh[s], i2), (d_vs[s], d2), (i_vs[s], i2)):
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["default K1", "sparse K3"])
+def test_batched_graph_path_equals_eager_vmap(scans, mode, monkeypatch):
+    """odometry_step_batched through its graph path (graphs.use_graph mocked
+    true, graphs.step a stand-in that records the call and runs the body
+    inline, as a capture does): the first three frames run the body
+    eagerly, the steady frame is one "odometry_step_batched" call keyed on
+    (cfg, the steady branches); every step bit for bit the eager vmap's,
+    and within 1e-4 m of each sequence stepped alone. odometry_step_sharded
+    reaches the same call."""
+    from vil_fusion_tpu_torch.utils import graphs
+
+    pts, val = scans
+    cfg = _tcfg(**MODES[mode])
+    steps = 4
+    _, want = _run_batched(cfg, pts, val, steps)
+    calls = []
+
+    def step(name, fn, args, static=(), lock=None):
+        hash(static)
+        calls.append((name, static))
+        with graphs.inline():
+            return fn(*args)
+
+    monkeypatch.setattr(graphs, "use_graph", lambda x: True)
+    monkeypatch.setattr(graphs, "step", step)
+    _, got = _run_batched(cfg, pts, val, steps)
+    assert calls == [("odometry_step_batched", (cfg, tlo.STEADY))]
+    for f in range(steps):
+        for a, b in zip(got[f], want[f]):
+            assert torch.equal(a, b), f
+    for s in range(S):
+        _, outs = _run_single(cfg, pts, val, steps, s)
+        for a, b in zip(got[-1], outs[-1]):
+            np.testing.assert_allclose(a[s].numpy(), b.numpy(), atol=TOL_M)
+    # rank 1 of 2 steps its half of the batch through the same call
+    from vil_fusion_tpu_torch.parallel import batched_odometry as bo
+    from vil_fusion_tpu_torch.parallel.mesh import Mesh
+
+    before = []
+    _run_batched(cfg, pts, val, steps, before)
+    mesh = Mesh(None, 1, 2, torch.device("cpu"))
+    _, half = bo.odometry_step_sharded(mesh, bo.shard_states(mesh, before[-1]),
+                                       torch.from_numpy(pts[steps - 1]),
+                                       torch.from_numpy(val[steps - 1]), cfg,
+                                       frame_count=steps - 1)
+    assert [c[0] for c in calls].count("odometry_step_batched") == 3
+    for a, b in zip(half, want[-1]):
+        np.testing.assert_allclose(a.numpy(), b[S // 2:].numpy(), atol=1e-5)

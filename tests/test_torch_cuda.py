@@ -14,7 +14,9 @@ capture of them against an eager call, the estimator's captured step
 (utils/graphs.py) against its eager body: over a sequence with both keyframe
 decisions, after the state is rebound, with no sync, without aliasing its
 outputs, and a small vil pipeline's stage graphs and frame graph (the
-reference's jits) replay by replay against their eager bodies.
+reference's jits) replay by replay against their eager bodies; the visual
+loop's graphs (keyframe program, PnP RANSAC, 4-DoF solve) and the batched
+odometry step's against their bodies, with no sync in a replay.
 
 Imports torch and numpy only (a CUDA machine need not have jax). Every
 test needs a card and skips without one. Where jax is not installed, skip
@@ -201,6 +203,50 @@ def test_cuda_vmap_rule_is_one_launch(cuda_device, grouped):
     assert kern.launches == before + 1 and d.shape == (4, 2, 2048, 5)
     d1, i1 = call(q[5], db[5], v[5])
     assert torch.equal(d[2, 1], d1) and torch.equal(i[2, 1], i1)
+
+
+def test_cuda_batched_odometry_graph_equals_body(cuda_device):
+    """odometry_step_batched's graph on the card (S = 3, 16 x 360 scans, K1,
+    7 steps: frames 0-2 the host branches' bodies, frame 3 the steady key's
+    first call, frame 4 its capture): every replay bit for bit the eager
+    vmapped body (graphs.inline()) from the same states, its batched K1
+    launches counted a replay as by the body, and a replay under
+    torch.cuda.set_sync_debug_mode("error") raises nothing."""
+    from vil_fusion_tpu_torch.models import lidar_features as lf
+    from vil_fusion_tpu_torch.models import lidar_odometry as lo
+    from vil_fusion_tpu_torch.runtime import sim
+    from vil_fusion_tpu_torch.utils import graphs
+
+    cfg = lo.OdomConfig(lidar=lf.LidarConfig(n_scan=16, width=360, fov_up_deg=20.0,
+                                             fov_down_deg=-20.0, min_range=1.0, edge_cap=256,
+                                             surf_cap=1024), edge_map_cap=2048, surf_map_cap=4096)
+    scene = sim.RaycastScene()
+    steps = 7
+    scans = [[sim.simulate_lidar_scan(scene, np.eye(3), np.array([3.0 + 2 * s + 0.3 * f, 0.5 * s,
+                                                                  1.5]), n_scan=16, width=360,
+                                      fov_up_deg=20.0, fov_down_deg=-20.0) for s in range(3)]
+             for f in range(steps)]
+    pts = torch.from_numpy(np.stack([[p for p, _ in r] for r in scans]).astype(np.float32))
+    val = torch.from_numpy(np.stack([[v for _, v in r] for r in scans]))
+    pts, val = pts.to(cuda_device), val.to(cuda_device)
+    states = lo.init_state_batched(cfg, 3, device=cuda_device)
+    r0 = graphs.replays.get("odometry_step_batched", 0)
+    for f in range(steps):
+        prev = states
+        n_cap, k0 = len(graphs.captures), kc.knn_grouped.launches_batched
+        with _sync_mode("error" if f == steps - 1 else None):
+            states, out = lo.odometry_step_batched(states, pts[f], val[f], cfg, frame_count=f)
+        k_graph = kc.knn_grouped.launches_batched - k0
+        k0 = kc.knn_grouped.launches_batched
+        with graphs.inline():
+            want_states, want = lo.odometry_step_batched(prev, pts[f], val[f], cfg,
+                                                         frame_count=f)
+        assert _equal_leaves((states, out), (want_states, want)), f
+        if f >= 3 and len(graphs.captures) == n_cap:
+            assert k_graph == kc.knn_grouped.launches_batched - k0 > 0, f
+    # replays from the capture on (frame 4, or 3 where an earlier test made
+    # the key's first call)
+    assert graphs.replays.get("odometry_step_batched", 0) - r0 >= steps - 4
 
 
 def test_cuda_batched_odometry_matches_single(cuda_device):
@@ -1365,3 +1411,200 @@ class _sync_mode:
     def __exit__(self, *exc):
         if self.mode:
             torch.cuda.set_sync_debug_mode("default")
+
+
+def _vl_frames(n):
+    """n keyframes of one place (tests/test_visual_loop.py's camera, 240 x
+    320): (image, window pixels (64, 2), their validity, camera-frame cloud,
+    its validity), the window points the port's corners."""
+    from vil_fusion_tpu_torch.ops import image as im
+    from vil_fusion_tpu_torch.runtime import sim
+
+    scene = sim.RaycastScene()
+    r_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    out = []
+    for k in range(n):
+        yaw, p = 0.01 * k, np.array([3.0 + 0.05 * k, 0.02 * k, 1.5])
+        R_wb = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0],
+                         [0, 0, 1]])
+        img = sim.render_camera_image(scene, R_wb @ r_bc, p, 250.0, 250.0, 160.0, 120.0, 240,
+                                      320).astype(np.float32)
+        xy, ok = im.detect_features(torch.from_numpy(img), torch.zeros((1, 2)),
+                                    torch.zeros(1, dtype=torch.bool), max_pts=64, min_dist=16)
+        pts, val = sim.simulate_lidar_scan(scene, R_wb, p, n_scan=32, width=600, seed=k)
+        out.append((img, xy.numpy(), ok.numpy(), (pts @ r_bc).astype(np.float32), val))
+    return out
+
+
+def _equal_leaves(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        (x is None and y is None) or (x.shape == y.shape and x.dtype == y.dtype
+                                      and torch.equal(x, y)) for x, y in zip(la, lb))
+
+
+def test_cuda_capture_on_a_thread_beside_replays(cuda_device):
+    """The visual-loop worker's pattern on the card: a graph captured on a
+    second thread (thread-local capture mode) while the main thread keeps
+    replaying its own graph. The capture's stats name the second thread
+    and count the main thread's replays made while it ran; both graphs'
+    outputs equal their bodies'; the capture's memory is read from its
+    private pool."""
+    import threading
+
+    from vil_fusion_tpu_torch.utils import graphs
+
+    x = torch.linspace(0.0, 1.0, 4096, device=cuda_device)
+
+    def main_body(a):
+        return torch.sin(a * 2.0 + 1.0)
+
+    def worker_body(a):
+        for _ in range(1500):  # a capture of some tenths of a second
+            a = a * 1.0001 + 1e-4
+        return a
+
+    for _ in range(2):  # the main thread's graph: the body, then the capture
+        graphs.step("main_graph", main_body, (x,))
+    n_cap, out, errors = len(graphs.captures), [], []
+
+    def worker():
+        try:
+            for _ in range(2):  # the body, then the capture
+                out.append(graphs.step("worker_graph", worker_body, (x,)))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    t = threading.Thread(target=worker, name="capturing-worker")
+    t.start()
+    while t.is_alive():
+        got = graphs.step("main_graph", main_body, (x,))
+    t.join()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert torch.equal(got, main_body(x))
+    with graphs.inline():
+        want = worker_body(x)
+    assert all(torch.equal(o, want) for o in out)
+    stats = [c for c in graphs.captures[n_cap:] if c["name"] == "worker_graph"]
+    assert len(stats) == 1 and stats[0]["thread"] == "capturing-worker"
+    assert stats[0]["replays_during"].get("main_graph", 0) > 0, stats[0]
+    assert stats[0]["pool_mib"] is not None and stats[0]["pool_mib"] > 0
+
+
+def test_cuda_visual_loop_graphs_equal_bodies(cuda_device):
+    """The visual loop's graphs on the card: the keyframe program
+    ("vl_keyframe"), the Hamming match ("vl_match"), the PnP RANSAC
+    ("pnp_ransac") and the 4-DoF solve
+    ("posegraph4dof_optimize") each called five times (the first runs the
+    body, the second captures): every replay bit for bit its eager body
+    (graphs.inline()) on the same inputs, and a replay of each under
+    torch.cuda.set_sync_debug_mode("error") raises nothing (the 4-DoF
+    solve's batched 4 x 4 inverse, torch.linalg.inv_ex, waits for nothing
+    either, eager or captured)."""
+    from vil_fusion_tpu_torch.models import cameras
+    from vil_fusion_tpu_torch.models import posegraph4dof as pg4
+    from vil_fusion_tpu_torch.models import visual_loop as vl
+    from vil_fusion_tpu_torch.utils import graphs
+
+    cam = cameras.PinholeCamera(fx=250.0, fy=250.0, cx=160.0, cy=120.0)
+    cfg = vl.VisualLoopConfig(capacity=16, win_cap=64, extra_cap=128)
+    dev = cuda_device
+    r0 = dict(graphs.replays)
+    for k, (img, xy, ok, cloud, cval) in enumerate(_vl_frames(5)):
+        args = [torch.from_numpy(x).to(dev) for x in (img, xy, ok, cloud, cval)]
+        with _sync_mode("error" if k >= 3 else None):
+            got = vl.keyframe_values(*args, cam, cfg, 0.1)
+        with graphs.inline():
+            want = vl.keyframe_values(*args, cam, cfg, 0.1)
+        assert _equal_leaves(got, want), k
+        assert int(want.depth_ok.sum()) > 0
+    rng = np.random.default_rng(0)
+    for k in range(5):
+        d = [torch.from_numpy(rng.integers(-2**31, 2**31, (n, 8)).astype(np.int32)).to(dev)
+             for n in (64, 128)]
+        v = [torch.from_numpy(rng.random(n) > 0.1).to(dev) for n in (64, 128)]
+        with _sync_mode("error" if k >= 3 else None):
+            got = vl.match_values(d[0], v[0], d[1], v[1])
+        with graphs.inline():
+            want = vl.match_values(d[0], v[0], d[1], v[1])
+        assert _equal_leaves(got, want), k
+    N = cfg.win_cap
+    pts = np.stack([rng.uniform(-4, 4, N), rng.uniform(-2, 2, N), rng.uniform(4, 12, N)], -1)
+    obs = pts[:, :2] / pts[:, 2:] + rng.normal(0, 1e-3, (N, 2))
+    t = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (pts, obs)]
+    valid = torch.from_numpy(rng.random(N) > 0.1).to(dev)
+    q0 = torch.tensor([1.0, 0.02, 0.0, 0.01], device=dev)
+    p0 = torch.tensor([0.2, 0.0, -0.1], device=dev)
+    for k in range(5):
+        u = vl.ransac_uniforms(64, N, torch.Generator().manual_seed(k)).to(dev)
+        with _sync_mode("error" if k >= 3 else None):
+            got = vl.pnp_ransac(*t, valid, q0, p0, n_hyp=64, inlier_tol=10 / 460, u=u)
+        with graphs.inline():
+            want = vl.pnp_ransac(*t, valid, q0, p0, n_hyp=64, inlier_tol=10 / 460, u=u)
+        assert _equal_leaves(got, want), k
+    g = pg4.init_graph(256, 16, device=dev)
+    p, yaw = np.zeros(3, np.float32), 0.0
+    for i in range(40):
+        g = pg4.add_node(g, torch.from_numpy(p.copy()).to(dev), yaw, 0.02, -0.01)
+        yaw += 0.01
+        p = p + np.array([np.cos(yaw), np.sin(yaw), 0.0], np.float32)
+    for k in range(5):
+        gk = pg4.add_loop(g, 0, 39 - k, torch.tensor([39.0 - k, 0.0, 0.0], device=dev), 0.0)
+        with _sync_mode("error" if k >= 3 else None):
+            got = pg4.optimize(gk)
+        with graphs.inline():
+            want = pg4.optimize(gk)
+        assert torch.equal(got.p, want.p) and torch.equal(got.yaw, want.yaw), k
+    assert float(torch.linalg.norm(got.p[35] - torch.tensor([35.0, 0, 0], device=dev))) < 1.0
+    blocks = torch.eye(4, device=dev).expand(256, 4, 4) * 3.0
+    with _sync_mode("error"):
+        inv = torch.linalg.inv_ex(blocks)[0]
+    torch.testing.assert_close(inv, torch.eye(4, device=dev).expand(256, 4, 4) / 3.0)
+    for name in ("vl_keyframe", "vl_match", "pnp_ransac", "posegraph4dof_optimize"):
+        assert graphs.replays.get(name, 0) - r0.get(name, 0) >= 4, name
+
+
+def test_cuda_visual_loop_db_graph_path_equals_eager(cuda_device):
+    """A VisualLoopDB on the card, four keyframes (one densified from its
+    cloud), verifications and a loop closure through the graphs, against
+    the same calls through the eager bodies (graphs.inline()): every store
+    array, the histograms and the 4-DoF graph bit for bit."""
+    from vil_fusion_tpu_torch.models import cameras
+    from vil_fusion_tpu_torch.models import visual_loop as vl
+    from vil_fusion_tpu_torch.utils import graphs
+
+    cam = cameras.PinholeCamera(fx=250.0, fy=250.0, cx=160.0, cy=120.0)
+    frames = _vl_frames(4)
+    from vil_fusion_tpu_torch.runtime import sim
+
+    r_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    q_bc = sim.R_to_q(r_bc)
+
+    def run(eager):
+        db = vl.VisualLoopDB(vl.VisualLoopConfig(capacity=16, win_cap=64, extra_cap=128),
+                             qic=q_bc, tic=np.zeros(3), min_incidence=0.1, device=cuda_device)
+        with graphs.inline() if eager else _sync_mode(None):
+            for k, (img, xy, ok, cloud, cval) in enumerate(frames):
+                px = xy[ok]
+                pts3d = np.concatenate([(px - [160.0, 120.0]) / 250.0, np.ones((len(px), 1))],
+                                       -1) * 8.0 @ r_bc.T
+                db.add_keyframe(img, np.array([1.0, 0, 0, 0]), np.array([3.0, 0, 1.5]),
+                                pts3d.astype(np.float32), px, np.ones(len(px), bool), cam,
+                                cloud_cam=torch.from_numpy(cloud).to(cuda_device) if k == 0
+                                else None,
+                                cloud_valid=torch.from_numpy(cval).to(cuda_device) if k == 0
+                                else None)
+            conns = [db.find_connection(i, j) for i, j in ((1, 0), (2, 0), (3, 1))]
+            db.close_loop(3, 0, np.array([1.0, 0, 0, 0], np.float32),
+                          np.array([0.1, 0.0, 0.0], np.float32))
+        torch.cuda.synchronize()
+        return db, conns
+
+    (g, cg), (e, ce) = run(False), run(True)
+    for k in ("win_desc", "win_pts3d", "win_valid", "extra_desc", "extra_xy", "extra_valid",
+              "q", "p", "vio_q", "vio_pts3d", "seq"):
+        assert np.array_equal(getattr(g, k), getattr(e, k)), k
+    assert torch.equal(g.hists, e.hists)
+    assert all(torch.equal(a, b) for a, b in zip(g.graph, e.graph))
+    assert g.stats == e.stats and len(cg) == len(ce)

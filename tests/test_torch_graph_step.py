@@ -4,7 +4,10 @@ torch.linalg.eigh and the reference's jnp.linalg.eigh, the graph module's
 argument flattening, host constants and launch counting
 (utils/graphs.py), graphs.cond (the port's lax.cond) outside a capture
 and under a mocked one, the branch-aware settlement of conditional
-launches, and the CUDA-only entry points refusing CPU tensors.
+launches, the CUDA-only entry points refusing CPU tensors, and the
+capture policy across threads under a mocked capture (the visual-loop
+worker captures holding the pipeline's step lock without taking it again,
+while the main thread replays).
 The kernel itself and the graph replays are held on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 
@@ -15,6 +18,7 @@ the largest and the reconstruction V diag(S) V^T within 1e-5 of max|A|
 """
 import contextlib
 import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -128,13 +132,14 @@ def test_step_refuses_cpu_tensors():
 
 
 def test_pipeline_upload_on_cpu():
-    """runtime.pipeline._upload: a host array on the CPU device is the
-    array's values (the card's path goes through pinned memory)."""
-    from vil_fusion_tpu_torch.runtime.pipeline import _upload
-
+    """graphs.upload, the pipeline's and global fusion's uploads: a host
+    array on the CPU device is the array's values, as `dtype` where one is
+    given (the card's path goes through pinned memory)."""
     x = np.arange(12, dtype=np.int16).reshape(4, 3)[:, ::2]
-    t = _upload(x, torch.device("cpu"))
+    t = graphs.upload(x, torch.device("cpu"))
     assert t.dtype == torch.int16 and np.array_equal(t.numpy(), x)
+    t = graphs.upload(x, torch.device("cpu"), torch.float32)
+    assert t.dtype == torch.float32 and np.array_equal(t.numpy(), x)
 
 
 class _FakeBodies:
@@ -302,3 +307,133 @@ def test_settle_counts_the_taken_bodies(flags):
     graphs._pending.append(settlement(True))
     graphs.reset_counts()
     assert graphs.settle(wait=True) == 0 and seen == want * 2
+
+
+@pytest.fixture
+def fake_captures(monkeypatch):
+    """graphs.step's capture mocked (CapturedStep and the device check), as
+    in test_torch_frame_graph.py: a capture records its name and lock,
+    takes the lock if one is given, and waits for `release` when its name
+    is in `hold`; a replay runs fn."""
+    made, hold, release = [], set(), threading.Event()
+
+    class Fake:
+        def __init__(self, name, fn, args, lock=None):
+            made.append((name, lock))
+            with lock if lock is not None else contextlib.nullcontext():
+                if name in hold:
+                    assert release.wait(timeout=20.0), "the capture was never released"
+            self.name, self.fn, self.stats = name, fn, dict(name=name)
+
+        def __call__(self, *args):
+            graphs.replays[self.name] = graphs.replays.get(self.name, 0) + 1
+            return self.fn(*args)
+
+    for attr, value in (("CapturedStep", Fake), ("_check_device", lambda name, leaves: None),
+                        ("_steps", {}), ("_seen", set()), ("_graphs_by_name", {}),
+                        ("_key_locks", {}), ("captures", [])):
+        monkeypatch.setattr(graphs, attr, value)
+    graphs.reset_counts()
+    return made, hold, release
+
+
+def test_worker_captures_holding_the_step_lock(fake_captures):
+    """The visual-loop worker's pattern: a thread that holds the pipeline's
+    step lock (a plain Lock) captures its graph without taking the lock
+    again (lock=None: taking it would deadlock), and while that capture is
+    under way the main thread replays its own graph (a capture holds its
+    key's lock only, not the step table's); a capture of the main thread
+    then takes the step lock, so it waits for the worker's step to end."""
+    made, hold, release = fake_captures
+    step_lock = threading.Lock()
+    x = torch.ones(3)
+    for _ in range(2):  # the main thread's key: eager, then captured (with the lock)
+        graphs.step("vil_frame", lambda a: a + 1, (x,), lock=step_lock)
+    hold.add("vl_keyframe")
+    errors, started = [], threading.Event()
+
+    def worker():
+        try:
+            with step_lock:
+                graphs.step("vl_keyframe", lambda a: a * 2, (x,))  # first call: eager
+                started.set()
+                out = graphs.step("vl_keyframe", lambda a: a * 2, (x,))  # captures
+                assert torch.equal(out, x * 2)
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    assert started.wait(timeout=20.0)
+    deadline = time.monotonic() + 20.0
+    while ("vl_keyframe", None) not in made and time.monotonic() < deadline:
+        time.sleep(0.01)
+    replayed = []
+    main = threading.Thread(target=lambda: replayed.append(
+        graphs.step("vil_frame", lambda a: a + 1, (x,), lock=step_lock)))
+    main.start()
+    main.join(timeout=10.0)
+    assert not main.is_alive() and torch.equal(replayed[0], x + 1)  # replayed meanwhile
+    assert t.is_alive()  # the worker's capture is still under way
+    release.set()
+    t.join(timeout=20.0)
+    assert not t.is_alive() and not errors, errors
+    assert made == [("vil_frame", step_lock), ("vl_keyframe", None)]
+    assert graphs.replays == {"vil_frame": 2, "vl_keyframe": 1}
+    assert not step_lock.locked()
+
+
+def test_capture_of_a_key_waits_for_its_own_capture_only(fake_captures):
+    """Two threads calling one key at its second call: one captures, the
+    other waits for that capture and replays it (no second capture); a
+    capture that raises leaves the key without a graph and raises."""
+    made, hold, release = fake_captures
+    x = torch.ones(2)
+    graphs.step("k", lambda a: a - 1, (x,))
+    hold.add("k")
+    outs = []
+    ts = [threading.Thread(target=lambda: outs.append(graphs.step("k", lambda a: a - 1, (x,))))
+          for _ in range(2)]
+    for t in ts:
+        t.start()
+    time.sleep(0.2)
+    release.set()
+    for t in ts:
+        t.join(timeout=20.0)
+    assert [n for n, _ in made] == ["k"] and len(outs) == 2
+    assert all(torch.equal(o, x - 1) for o in outs) and graphs.replays == {"k": 2}
+
+    def broken(name, fn, args, lock=None):
+        raise RuntimeError("capture failed")
+
+    graphs.step("bad", lambda a: a, (x,))
+    graphs.CapturedStep = broken
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.step("bad", lambda a: a, (x,))
+    assert not any(k[0] == "bad" for k in graphs._steps)
+    assert graphs._graphs_by_name.get("bad", 0) == 0
+
+
+def test_failed_capture_frees_its_graph_slot(fake_captures, monkeypatch):
+    """A capture that raises leaves the name's count of graphs as it was:
+    with one graph allowed a name, another key of that name still captures
+    after the failure (and the failed key raises again, never running its
+    body in place of a graph)."""
+    made, _, _ = fake_captures
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", 1)
+    fake = graphs.CapturedStep
+
+    def broken(name, fn, args, lock=None):
+        raise RuntimeError("capture failed")
+
+    x, y = torch.ones(2), torch.ones(3)
+    graphs.step("n", lambda a: a + 1, (x,))
+    monkeypatch.setattr(graphs, "CapturedStep", broken)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.step("n", lambda a: a + 1, (x,))
+    assert graphs._graphs_by_name.get("n", 0) == 0
+    monkeypatch.setattr(graphs, "CapturedStep", fake)
+    graphs.step("n", lambda a: a + 1, (y,))
+    assert torch.equal(graphs.step("n", lambda a: a + 1, (y,)), y + 1)
+    assert made == [("n", None)] and graphs._graphs_by_name == {"n": 1}
+    assert graphs.replays == {"n": 1}

@@ -2,6 +2,10 @@
 tests/test_visual_loop.py's graphs: the yaw-drift chain closed by one loop
 edge (:60) and two sessions stitched by a loop (:192).
 
+The body's fixed-order sums equal the reference's scatter-add on exact
+(integer-valued) blocks; through the graph path (graphs.step mocked on the
+CPU) optimize is its body bit for bit.
+
 Tolerances: add_node / add_loop write the same float32 values (equal);
 `optimize` (10 GN steps of a 64-iteration PCG in float32, the edge
 Jacobian written out in the port and taken by jax.jacfwd in the reference)
@@ -111,3 +115,70 @@ def test_edge_jacobian_matches_autodiff():
     np.testing.assert_allclose(J.numpy(), J_ad.numpy(), atol=1e-10)
     np.testing.assert_allclose(r.numpy(), torch.func.vmap(res)(x0, args[2], args[5],
                                                                args[6]).numpy(), atol=1e-12)
+
+
+def _graph_stand_in(monkeypatch, calls):
+    """graphs.use_graph mocked true and graphs.step a stand-in that records
+    (name, static, lock) and runs the body inline, as a capture would."""
+    from vil_fusion_tpu_torch.utils import graphs
+
+    def step(name, fn, args, static=(), lock=None):
+        hash(static)
+        calls.append((name, static, lock))
+        with graphs.inline():
+            return fn(*args)
+
+    monkeypatch.setattr(graphs, "use_graph", lambda x: True)
+    monkeypatch.setattr(graphs, "step", step)
+
+
+@pytest.mark.parametrize("build", [_yaw_chain, _sessions])
+def test_optimize_graph_path_is_the_body(build, monkeypatch):
+    """optimize through the graph path (graphs.step mocked on the CPU): one
+    call of "posegraph4dof_optimize" keyed on (gn_iters, cg_iters,
+    lm_lambda), no lock taken (its callers hold the pipeline's step lock),
+    the body's result bit for bit, the reference's within 1e-5, and the
+    input graph left as it was (the body writes nothing)."""
+    gj, gt, _ = build()
+    want = tpg.optimize(gt)
+    before = {f: v.clone() for f, v in gt._asdict().items()}
+    calls = []
+    _graph_stand_in(monkeypatch, calls)
+    got = tpg.optimize(gt)
+    assert calls == [("posegraph4dof_optimize", (10, 64, 0.02), None)]
+    for f in ("p", "yaw"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f, v in gt._asdict().items():
+        assert torch.equal(v, before[f]), f
+    oj = jpg.optimize(gj)
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(oj.p), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.yaw.numpy(), np.asarray(oj.yaw), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,n_loops", [(8, 3), (64, 5), (128, 0)])
+def test_fixed_order_sums_equal_the_scatter(n, n_loops):
+    """The body's per-node sums (the sequential edges' table, the loop
+    edges' one-hots) against the reference's scatter-add, on integer-valued
+    blocks of every edge, the clamped edges of the last nodes included
+    (every order sums them exactly): equal, with n_loops loop slots in use.
+    The last node sums the most rows: its 4 edges as i, 14 as j."""
+    rng = np.random.default_rng(n)
+    seq_i, seq_j, table = tpg._seq_edges(n)
+    L = 8
+    loop_i = rng.integers(0, n, L)
+    loop_j = rng.integers(0, n, L)
+    ei = np.concatenate([seq_i, loop_i])
+    ej = np.concatenate([seq_j, loop_j])
+    rows_i = rng.integers(-50, 50, (len(ei), 4)).astype(np.float32)
+    rows_j = rng.integers(-50, 50, (len(ej), 4)).astype(np.float32)
+    rows_i[len(seq_i) + n_loops:] = rows_j[len(seq_j) + n_loops:] = 0.0
+    want = np.zeros((n, 4), np.float32)
+    np.add.at(want, ei, rows_i)
+    np.add.at(want, ej, rows_j)
+    E = len(seq_i)
+    stacked = np.concatenate([rows_i[:E], rows_j[:E], np.zeros((1, 4), np.float32)])
+    onehot_i = (loop_i[None, :] == np.arange(n)[:, None]).astype(np.float32)
+    onehot_j = (loop_j[None, :] == np.arange(n)[:, None]).astype(np.float32)
+    got = stacked[table].sum(1) + onehot_i @ rows_i[E:] + onehot_j @ rows_j[E:]
+    np.testing.assert_array_equal(got, want)
+    assert table.shape == (n, 4 + 14)

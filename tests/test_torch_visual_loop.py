@@ -12,6 +12,14 @@ Gauss-Newton on the same samples). The loop bookkeeping (`close_loop`,
 two-tier detection gates exactly, and `save` / `load` carry a database
 across the packages both ways.
 
+The reference's jitted programs, which the port replays as CUDA graphs on
+the card: the keyframe program's pure part (`_keyframe_values`) against the
+reference's pieces (bit for bit, the densification's depths within 1e-5),
+the PnP RANSAC on uniforms drawn before its graph (bit for bit the port on
+the JAX key's samples; the same draws as the generator path), and the DB's
+programs through their graph path (graphs.step mocked on the CPU) on a
+worker thread holding a step lock, bit for bit the eager DB.
+
 Left out of the parity cases: a loop between two sessions, where the port
 drops the reference's drift bound (a fixed reference bug, tested on the
 port alone below).
@@ -274,3 +282,197 @@ def test_pnp_ransac_matches_reference(seed, outliers):
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=1e-4)
     np.testing.assert_allclose(np.abs(qt.numpy() @ np.asarray(qj)), 1.0, atol=1e-6)
     assert inl_t.sum() >= 0.8 * (valid & ~bad).sum()
+
+
+def _cloud(p_wb):
+    """tests/test_visual_loop.py's densification scan at p_wb, in the camera
+    frame (device-less numpy: points (M, 3), validity (M,))."""
+    pts, val = sim.simulate_lidar_scan(sim.RaycastScene(), np.eye(3), p_wb, n_scan=32,
+                                       width=600, seed=0)
+    return (pts @ R_BC).astype(np.float32), val
+
+
+@pytest.mark.parametrize("with_cloud", [False, True])
+def test_keyframe_values_match_reference(with_cloud):
+    """The keyframe program's pure part (`_keyframe_values`) against the
+    reference's pieces on the same inputs: window and extra descriptors,
+    the extra corners' validity, their rays (the reference lifts them on
+    the host, the port on the device) and the BoW histogram bit for bit;
+    with a cloud, feature_depth's mask equal and its depths within 1e-5;
+    the inputs are left as they were (the program writes nothing)."""
+    from vil_fusion_tpu.models import depth_association as jda
+
+    cfg = tvl.VisualLoopConfig(**CFG)
+    p_wb, yaw = np.array(POSES[0][0]), POSES[0][1]
+    img, _, _, _, px, pval = _keyframe(p_wb, yaw)
+    wn = min(len(px), cfg.win_cap)
+    wxy = np.zeros((cfg.win_cap, 2), np.float32)
+    wval = np.zeros(cfg.win_cap, bool)
+    wxy[:wn], wval[:wn] = px[:wn], pval[:wn]
+    cloud = _cloud(p_wb) if with_cloud else (None, None)
+    args = [torch.from_numpy(img), torch.from_numpy(wxy), torch.from_numpy(wval)] + [
+        None if c is None else torch.from_numpy(c) for c in cloud]
+    kept = [None if a is None else a.clone() for a in args]
+    kv = tvl._keyframe_values(*args, CAM_T, cfg, min_incidence=0.1)
+    for a, b in zip(args, kept):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+    jimg = jnp.asarray(img)
+    wdesc = jb.brief_descriptors(jimg, jnp.asarray(wxy), jnp.asarray(wval))
+    exy, evalid = jim.detect_features(jimg, jnp.zeros((1, 2), jnp.float32),
+                                      jnp.zeros((1,), bool), max_pts=cfg.extra_cap, min_dist=10)
+    edesc = jb.brief_descriptors(jimg, exy, evalid)
+    ray = jvl.VisualLoopDB._lift(None, CAM_J, np.asarray(exy))
+    hist = jb.word_histogram(jb.words_of(jnp.concatenate([wdesc, edesc])),
+                             jnp.concatenate([jnp.asarray(wval), evalid]))
+    for got, want in ((kv.win_desc, wdesc), (kv.extra_desc, edesc), (kv.extra_valid, evalid),
+                      (kv.extra_xy, ray), (kv.hist, hist)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if with_cloud:
+        dep, okd = jda.feature_depth(jnp.asarray(ray), evalid, jnp.asarray(cloud[0]),
+                                     jnp.asarray(cloud[1]))
+        np.testing.assert_array_equal(kv.depth_ok.numpy(), np.asarray(okd))
+        np.testing.assert_allclose(kv.depth.numpy(), np.asarray(dep), atol=1e-5, rtol=0)
+        assert int(okd.sum()) > 10
+    else:
+        assert kv.depth is None and kv.depth_ok is None
+    # the one host read holds every leaf but the histogram
+    parts = [kv.win_desc, kv.extra_desc, kv.extra_valid, kv.extra_xy, kv.depth, kv.depth_ok]
+    assert kv.host.shape == (sum(x.numel() for x in parts if x is not None),)
+
+
+def test_db_programs_through_the_graph_path_on_a_worker(monkeypatch):
+    """The DB's programs through their graph path (graphs.use_graph mocked
+    true, graphs.step a stand-in that records the call and runs the body
+    inline), called on a worker thread that holds a step lock, as the
+    pipeline's worker does: the keyframe program a keyframe, the Hamming
+    match a verification, the PnP RANSAC a verification past the Hamming
+    gate and the 4-DoF solve a loop closure, none taking a lock
+    (lock=None), each keyed on its static arguments; the database ends bit
+    for bit as the eager one."""
+    from vil_fusion_tpu_torch.utils import graphs
+
+    inputs = [_keyframe(np.array(p), yaw) for p, yaw in POSES]
+    cloud = [torch.from_numpy(c) for c in _cloud(np.array(POSES[0][0]))]
+
+    def run(db):
+        out = []
+        for k, args in enumerate(inputs):
+            a = list(args)
+            if k == 0:
+                a[3], a[4], a[5] = a[3][:20], a[4][:20], a[5][:20]
+            db.add_keyframe(*a, CAM_T, cloud_cam=cloud[0] if k == 0 else None,
+                            cloud_valid=cloud[1] if k == 0 else None)
+        out.append(db.find_connection(1, 0))
+        out.append(db.find_connection(2, 0))
+        db.close_loop(2, 0, np.array([np.cos(0.05), 0, 0, np.sin(0.05)], np.float32),
+                      np.array([0.3, -0.2, 0.05], np.float32))
+        return out
+
+    _, eager = _dbs()
+    want = run(eager)
+    calls, step_lock, errors = [], __import__("threading").Lock(), []
+
+    def step(name, fn, args, static=(), lock=None):
+        hash(static)
+        calls.append((name, static, lock, step_lock.locked()))
+        with graphs.inline():
+            return fn(*args)
+
+    monkeypatch.setattr(graphs, "use_graph", lambda x: True)
+    monkeypatch.setattr(graphs, "step", step)
+    _, db = _dbs()
+    got = []
+
+    def worker():
+        try:
+            with step_lock:
+                got.extend(run(db))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    t = __import__("threading").Thread(target=worker)
+    t.start()
+    t.join(timeout=120.0)
+    assert not t.is_alive() and not errors, errors
+    names = [c[0] for c in calls]
+    middle = " ".join(names[3:-1]).replace("vl_match pnp_ransac", "V").split()
+    assert names[:3] == ["vl_keyframe"] * 3 and names[-1] == "posegraph4dof_optimize"
+    assert set(middle) <= {"V", "vl_match"} and len(middle) == 2 and "V" in middle, names
+    assert all(lock is None and held for _, _, lock, held in calls)
+    cfg = db.cfg
+    assert [c[1] for c in calls[:3]] == [(CAM_T, cfg, None, True)] + [(CAM_T, cfg, None, False)] * 2
+    assert calls[3][1] == () and calls[4][1] == (cfg.pnp_ransac_hyp, cfg.pnp_inlier_px)
+    assert calls[-1][1] == (10, 64, 0.02)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    _assert_db_equal(db, eager)
+    assert int(db.graph.n_loops) == 1 and db.seq[:3].tolist() == [0, 0, 0]
+
+
+def _pnp_case(seed, outliers):
+    """test_pnp_ransac_matches_reference's synthetic correspondences: numpy
+    (pts, obs, valid), the seeds (q0, p0) and the outliers' mask."""
+    rng = np.random.default_rng(seed)
+    N = 120
+    pts = np.stack([rng.uniform(-4, 4, N), rng.uniform(-2, 2, N), rng.uniform(4, 12, N)], -1)
+    R_t = np.asarray(jvl.lie.ypr2R(jnp.asarray([12.0, -4.0, 3.0])), np.float64)
+    q_t, p_t = sim.R_to_q(R_t), np.array([0.4, -0.2, 0.1])
+    pc = (pts - p_t) @ R_t
+    obs = pc[:, :2] / pc[:, 2:] + rng.normal(0, 1e-3, (N, 2))
+    bad = rng.random(N) < outliers
+    obs[bad] += rng.uniform(-0.3, 0.3, (int(bad.sum()), 2))
+    valid = rng.random(N) > 0.1
+    q0 = jvl.lie.qmul(jnp.asarray(q_t, jnp.float32), jvl.lie.so3_exp(jnp.asarray([0.1, 0, 0.05])))
+    p0 = jnp.asarray(p_t + [0.3, 0.0, -0.1], jnp.float32)
+    return (pts.astype(np.float32), obs.astype(np.float32), valid), (q0, p0), bad
+
+
+@pytest.mark.parametrize("seed,outliers", [(0, 0.0), (1, 0.3), (2, 0.6)])
+def test_pnp_ransac_on_drawn_uniforms_matches_reference(seed, outliers):
+    """pnp_ransac given the RANSAC's uniforms `u` (drawn before its graph):
+    with the JAX key's uniforms, bit for bit the port on the JAX key's
+    samples (`sel=`), the reference's inliers and its pose within 1e-4."""
+    (pts, obs, valid), (q0, p0), bad = _pnp_case(seed, outliers)
+    key = jax.random.PRNGKey(seed + 1)
+    u = np.asarray(jax.random.uniform(key, (64, len(valid))))
+    qj, pj, inl_j = jvl.pnp_ransac(jnp.asarray(pts), jnp.asarray(obs), jnp.asarray(valid), q0, p0,
+                                   q0_alt=q0, p0_alt=p0, n_hyp=64, inlier_tol=10 / 460, key=key)
+    t = [torch.from_numpy(np.array(x)) for x in (pts, obs, valid, q0, p0)]
+    got = tvl.pnp_ransac(*t, n_hyp=64, inlier_tol=10 / 460, u=torch.from_numpy(u))
+    ref = tvl.pnp_ransac(*t, n_hyp=64, inlier_tol=10 / 460, sel=_jax_sel(seed + 1, valid))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(inl_j))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(pj), atol=1e-4)
+    assert got[2].sum() >= 0.8 * (valid & ~bad).sum()
+
+
+def test_pnp_ransac_graph_path_draws_the_generator_samples(monkeypatch):
+    """The uniforms drawn before the graph (`ransac_uniforms` from a
+    generator seeded as find_connection seeds it) are the draws the
+    generator path makes: the same result bit for bit, by the eager body
+    and through the graph path (graphs.step mocked: one "pnp_ransac" call
+    keyed on (n_hyp, inlier_tol))."""
+    from vil_fusion_tpu_torch.utils import graphs
+
+    (pts, obs, valid), (q0, p0), _ = _pnp_case(1, 0.3)
+    t = [torch.from_numpy(np.array(x)) for x in (pts, obs, valid, q0, p0)]
+    kw = dict(n_hyp=64, inlier_tol=10 / 460)
+    want = tvl.pnp_ransac(*t, **kw, generator=torch.Generator().manual_seed(7))
+    u = tvl.ransac_uniforms(64, len(valid), torch.Generator().manual_seed(7))
+    calls = []
+
+    def step(name, fn, args, static=(), lock=None):
+        calls.append((name, static, lock))
+        with graphs.inline():
+            return fn(*args)
+
+    monkeypatch.setattr(graphs, "use_graph", lambda x: True)
+    monkeypatch.setattr(graphs, "step", step)
+    got = tvl.pnp_ransac(*t, **kw, u=u)
+    assert calls == [("pnp_ransac", (64, 10 / 460), None)]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -13,14 +13,17 @@ the revisit; its frames are rendered before the timing), times `--frames`
 steady frames with
 the host clock (no profiler: starting one costs seconds), then traces the
 next `--frames` frames with torch.profiler (CPU + CUDA activities) and
-prints: wall time per frame without the profiler, device kernel time per
+prints: wall time per frame without the profiler and the host ms per frame
+of each GLOBAL_TIMERS stage over those frames, device kernel time per
 frame and its share of that wall time (the device's busy share), kernel
 launches per frame (a CUDA graph's replay counts as one launch, its
 kernels as device time), launches, host waits and copies per frame inside each
 GLOBAL_TIMERS stage (the visual-loop worker's jobs are the stage
-"visual_loop"; the trace covers every thread), the CUDA graphs replayed per
-frame by name and the kernels' launches per frame as their wrappers count
-them (a replay counts the launches its graph holds), the kNN kernels' share
+"visual_loop"; the trace covers every thread; the loop path also prints
+each job's kind and host ms, and each traced job's launches, waits and
+copies), the CUDA graphs replayed per frame by name and the kernels'
+launches per frame as their wrappers count them (a replay counts the
+launches its graph holds), the kNN kernels' share
 of the device time, and the ten kernels with the most device time.
 `--sync-depth 2` runs the vil path deferred (a steady frame one replay of
 the frame's graph). Needs one NVIDIA card; prints the card's name and power
@@ -69,6 +72,7 @@ def _stepper(path: str, n: int, dev, sync_depth: int = 0):
             return pipe.push_image(t, img)
 
         step_loop.pipe = pipe  # main() waits for its worker at the window's end
+        step_loop.jobs = cs._log_vl_jobs(pipe)  # (kind, host s) a worker job
         return step_loop
     frames = cs._sequence(n)
     if path in ("dense", "sparse"):
@@ -174,12 +178,25 @@ def main() -> int:
     from vil_fusion_tpu_torch.ops.cuda import knn_cuda as kc
     from vil_fusion_tpu_torch.utils import graphs
 
+    from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
+
     cs._reset(kc)
+    before = GLOBAL_TIMERS.summary()
+    jobs0 = len(step.jobs) if hasattr(step, "jobs") else 0
     t0 = time.perf_counter()
     for i in range(warmup, warmup + n):
         step(i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    after = GLOBAL_TIMERS.summary()
+    print("  host ms per frame by stage over the timed frames (GLOBAL_TIMERS; the worker's "
+          "'visual_loop' runs beside the main thread's stages): " + ", ".join(
+              f"{k} {1e3 * (v['total_s'] - before.get(k, {}).get('total_s', 0.0)) / n:.2f}"
+              for k, v in after.items()
+              if v["n"] != before.get(k, {}).get("n", 0)), flush=True)
+    if hasattr(step, "jobs"):
+        print(f"  visual-loop worker jobs that ended in the timed frames: (kind, host ms) "
+              f"{[(k, round(1e3 * dt, 2)) for k, dt in step.jobs[jobs0:]]}", flush=True)
     graphs.settle(wait=True)  # the conditional bodies' launches of the last replays
     print(f"  graph replays per frame: {({k: v / n for k, v in graphs.replays.items()})} "
           f"(steps that ran their body: {graphs.eager_calls}); kernel launches per frame "
@@ -191,8 +208,6 @@ def main() -> int:
     except TypeError:
         print("  (this torch profiles the calling thread only)", flush=True)
         cfg = {}
-    from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
-
     jobs = GLOBAL_TIMERS.summary().get("visual_loop", {}).get("n", 0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **cfg) as prof:
         for i in range(warmup + n, warmup + 2 * n):
@@ -202,8 +217,14 @@ def main() -> int:
         torch.cuda.synchronize()
     if hasattr(step, "pipe"):
         jobs = GLOBAL_TIMERS.summary().get("visual_loop", {}).get("n", 0) - jobs
+        log = step.jobs[len(step.jobs) - jobs:] if jobs else []
         print(f"  visual-loop worker jobs in the traced window: {jobs} (the stage "
-              f"'visual_loop' below; its counts are per frame of the window)", flush=True)
+              f"'visual_loop' below; its counts are per frame of the window); a job's "
+              f"(kind, launches, host waits, async copies, host ms): "
+              f"{[(k, *c, round(1e3 * dt, 2)) for (k, dt), c in zip(log, cs._job_launches(prof))]}"
+              f"; the worker's graph replays over the timed and traced frames "
+              f"{({k: graphs.replays.get(k, 0) for k in cs.VL_GRAPHS})}",
+              flush=True)
     events = prof.key_averages()
     stage_names = _stage_names()
     # the stage ranges (utils/tracing.py) show on the device timeline too;

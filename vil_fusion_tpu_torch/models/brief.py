@@ -10,7 +10,10 @@ reference packs and shifts them as uint32, whose arithmetic torch supports
 only in part, so this port computes on int64 masked to 32 bits and wraps
 to int32 explicitly. With the samples rounded as the reference's compiled
 program rounds them (`_sample`), descriptors, Hamming distances, word ids
-and matches are bit for bit the reference's on the CPU.
+and matches are bit for bit the reference's on the CPU. The functions read
+nothing on the host and copy no host data (the pattern and the LSH bit
+positions are `host_constant`s): the visual loop's keyframe graph holds
+them.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from vil_fusion_tpu_torch.ops import image as im
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 N_BITS = 256
 # multi-table bit-sampling LSH: T tables of B raw descriptor bits each
@@ -91,7 +95,7 @@ def brief_descriptors(img, xy, valid):
     # the reference's program divides by 25 as a product with the float32
     # reciprocal
     sm = im.box_filter(img, 2) * float(np.float32(1.0) / np.float32(25.0))
-    pat = torch.as_tensor(_PATTERN_NP, device=img.device)  # (256, 2, 2)
+    pat = host_constant(_PATTERN_NP, torch.float32, img.device)  # (256, 2, 2)
     a = _sample(sm, xy[:, None, :] + pat[None, :, 0, :])
     b = _sample(sm, xy[:, None, :] + pat[None, :, 1, :])
     bits = (a < b).to(torch.int64).reshape(-1, 8, 32)
@@ -140,7 +144,7 @@ def words_of(desc):
     dev = desc.device
     bit_idx = torch.arange(N_BITS, device=dev)
     bits = (_lanes(desc)[:, bit_idx // 32] >> (bit_idx % 32)) & 1  # (N, 256)
-    group = bits[:, torch.as_tensor(_WORD_SEL_NP, dtype=torch.int64, device=dev)]  # (N, T, B)
+    group = bits[:, host_constant(_WORD_SEL_NP, torch.int64, dev)]  # (N, T, B)
     weights = torch.ones(BITS_PER_TABLE, dtype=torch.int64, device=dev) << torch.arange(
         BITS_PER_TABLE, device=dev)
     w = (group * weights).sum(dim=-1)

@@ -11,9 +11,9 @@ are copied into pinned host memory with non_blocking copies behind a
 recorded CUDA event, and resolved only once `event.query()` says they have
 landed — a keyframe never waits for the device to drain (the reference's
 loop-detection and ICP workers are asynchronous to graph building too).
-Host values go up the same way (pinned memory, non_blocking, the buffer
-held with the record that waits for the copy), so no call waits for the
-frames in flight, but `flush`, `prewarm`, `poses` and the blocking polls.
+Host values go up the same way (`graphs.upload`: pinned memory,
+non_blocking), so no call waits for the frames in flight, but `flush`,
+`prewarm`, `poses` and the blocking polls.
 
 On a CUDA device the reference's jitted programs replay CUDA graphs
 (utils/graphs.step): the keyframe program's pure part ("keyframe_program":
@@ -42,12 +42,9 @@ from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 class _HostCopy:
     """Asynchronous device -> host copy of a few tensors. On CUDA the copy
-    goes to pinned memory behind an event; on the CPU it is immediate.
-    `keep` holds the pinned buffers of uploads enqueued before the copy
-    until the record is dropped (after its event)."""
+    goes to pinned memory behind an event; on the CPU it is immediate."""
 
-    def __init__(self, *tensors, keep=None):
-        self.keep = keep  # host buffers of uploads enqueued before this copy
+    def __init__(self, *tensors):
         self._event = None
         if tensors[0].is_cuda:
             self.values = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -75,18 +72,6 @@ def _linspace_idx(n: int, cap: int, device):
     rounds a few of them one lower (3 of 2048 at n = 115,200)."""
     j = torch.arange(cap, dtype=torch.int64, device=device)
     return (j * (n - 1)) // max(cap - 1, 1)
-
-
-def _upload(x, dtype, device):
-    """(tensor of the host array `x` as `dtype` on `device`, the pinned
-    buffer it came from or None). On the card the copy is non_blocking from
-    pinned memory, so it waits for nothing enqueued before it; the caller
-    keeps the buffer until a later event has passed the copy."""
-    t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
-    if device.type != "cuda":
-        return t.to(device), None
-    h = t.pin_memory()
-    return h.to(device, non_blocking=True), h
 
 
 def _row(x, i):
@@ -249,9 +234,9 @@ class GlobalFusion:
             return None  # graph full
 
         # the four poses in one pinned, non-blocking upload
-        poses, pinned = _upload(np.concatenate(
+        poses = graphs.upload(np.concatenate(
             [self.last_q if i else q_np, self.last_p if i else p_np, q_np, p_np]),
-            self.dtype, self.device)
+            self.device, self.dtype)
         (self.graph, self.scdb, self.clouds, self.cloud_valid, cand, dist,
          shift) = _keyframe_program(
             self.graph, self.scdb, self.clouds, self.cloud_valid,
@@ -267,7 +252,7 @@ class GlobalFusion:
 
         # start the host copy of this keyframe's loop query now; resolve
         # queries only once their copies have landed
-        self._pending_sc.append((i, _HostCopy(cand, dist, shift, keep=pinned)))
+        self._pending_sc.append((i, _HostCopy(cand, dist, shift)))
         res_icp = self._poll_icp()
         res_sc = self._poll_sc()
         result = res_sc if res_sc is not None else res_icp
@@ -337,13 +322,13 @@ class GlobalFusion:
                                j + cfg.submap_half_span + 1), 0, self.n_kf - 1)
         dup = np.zeros(len(ks), bool)
         dup[1:] = ks[1:] == ks[:-1]  # clamp duplicates (ks is nondecreasing)
-        ks_dev, ks_pinned = _upload(ks, torch.int64, self.device)
-        dup_dev, dup_pinned = _upload(dup, torch.bool, self.device)
+        ks_dev = graphs.upload(ks, self.device, torch.int64)
+        dup_dev = graphs.upload(dup, self.device, torch.bool)
         q_fit, p_fit, fitness = _submap_icp(
             self.graph.q, self.graph.p, self.clouds, self.cloud_valid, ks_dev, dup_dev,
             i, j, yaw0, self.capture_lock)
         self._pending_icp.append((i, j, q_fit, p_fit,
-                                  _HostCopy(fitness, keep=(ks_pinned, dup_pinned))))
+                                  _HostCopy(fitness)))
 
     def _poll_icp(self, block: bool = False) -> Optional[tuple]:
         """Accept every completed ICP verification whose fitness passes

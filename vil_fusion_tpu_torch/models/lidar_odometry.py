@@ -377,10 +377,25 @@ def odometry_step_batched(states: MapState, points, valid, cfg: OdomConfig = Odo
     reference vmaps its step; the kNN wrappers' vmap rules make each K1 / K2
     call one launch over the S sequences (K3, the Morton keys: one call a
     sequence). The sequences step together, so one host `frame_count`
-    serves them all (None reads sequence 0's on the device)."""
+    serves them all (None reads sequence 0's on the device, before the
+    step). On the card a steady step replays its graph
+    ("odometry_step_batched", keyed on cfg, the branches, S and the shapes),
+    the reference's jit of the vmapped step; frames 0-2 run
+    `odometry_step_batched_body` eagerly, as the single step's do."""
     if frame_count is None:
         frame_count = int(states.frame_count[0])
     br = branches(frame_count, cfg)
+    body = functools.partial(odometry_step_batched_body, cfg=cfg, br=br)
+    if br == STEADY and graphs.use_graph(points):
+        return graphs.step("odometry_step_batched", body, (states, points, valid),
+                           static=(cfg, br))
+    return body(states, points, valid)
+
+
+def odometry_step_batched_body(states: MapState, points, valid, cfg: OdomConfig,
+                               br: Branches):
+    """odometry_step_batched's pure body at branches `br`: torch.func.vmap
+    of `odometry_step_body` (what its graph holds)."""
     return torch.func.vmap(lambda s, p, v: odometry_step_body(s, p, v, cfg, br))(
         states, points, valid)
 

@@ -8,14 +8,16 @@ drift (yaw + t) of a solve applied to later frames.
 
 Batched Gauss-Newton with a block-Jacobi PCG over (x, y, z, yaw) per node,
 as the reference. Its `fori_loop`s are host loops with every step on the
-device (no host read); the vmapped `jax.jacfwd` of the 8-dim edge residual
-is written out analytically; `.at[].add` is `index_add`, which sums in
-atomic order on CUDA. `add_node` / `add_loop` return a new graph and leave
-their input unchanged, so a graph taken before a solve stays valid for
-`drift_transform`.
+device (no host read), captured on the card as one CUDA graph
+(`utils/graphs.step`, the reference's jit); the vmapped `jax.jacfwd` of the
+8-dim edge residual is written out analytically; `.at[].add` is a sum in a
+fixed order (`_optimize_body`). `add_node` / `add_loop` return a new graph
+and leave their input unchanged, so a graph taken before a solve stays
+valid for `drift_transform`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.utils import graphs
+from vil_fusion_tpu_torch.utils.graphs import host_constant
 
 SEQ_NEIGHBORS = 4  # sequential edges span (pose_graph.cpp:436-470)
 
@@ -111,7 +115,7 @@ def _edge_residual_jacobian(p_i, yaw_i, pr_i, p_j, yaw_j, t_m, yaw_m):
     gd = torch.stack([d[:, 1], -d[:, 0], torch.zeros_like(d[:, 0])], dim=-1)
     dyaw_i = torch.einsum("eij,ej->ei", RT, gd)
     J_t = torch.cat([-RT, dyaw_i[:, :, None], RT, torch.zeros_like(dyaw_i[:, :, None])], dim=2)
-    J_y = torch.tensor([0.0, 0, 0, -1, 0, 0, 0, 1], dtype=p_i.dtype, device=p_i.device)
+    J_y = host_constant((0.0, 0, 0, -1, 0, 0, 0, 1), p_i.dtype, p_i.device)
     J = torch.cat([J_t, J_y.expand(p_i.shape[0], 1, 8)], dim=1)
     return torch.cat([r_t, r_y[:, None]], dim=-1), J
 
@@ -128,44 +132,100 @@ def _guard(x):
     return torch.where(torch.abs(x) > 1e-12, x, torch.full_like(x, 1e-12))
 
 
+@functools.lru_cache(maxsize=None)
+def _seq_edges(n: int):
+    """The sequential edges of an n-node graph, (i, i + k) for k = 1..4 (j
+    clamped to n - 1, as the reference), as host arrays: seq_i, seq_j, and
+    the (n, D) table of the rows that sum into each node, where the rows
+    are the edges' i-side blocks, then their j-side blocks, then a zero row
+    (index 2 E) that pads the table: a node's i-side rows first, in edge
+    order, then its j-side rows."""
+    idx = np.arange(n)
+    seq_i = np.tile(idx, SEQ_NEIGHBORS)
+    seq_j = np.concatenate([np.minimum(idx + k, n - 1) for k in range(1, SEQ_NEIGHBORS + 1)])
+    E = seq_i.shape[0]
+    rows = [[] for _ in range(n)]
+    for e, i in enumerate(seq_i):
+        rows[i].append(e)
+    for e, j in enumerate(seq_j):
+        rows[j].append(E + e)
+    table = np.full((n, max(len(r) for r in rows)), 2 * E, np.int64)
+    for i, r in enumerate(rows):
+        table[i, :len(r)] = r
+    return seq_i, seq_j, table
+
+
 def optimize(graph: PoseGraph4DoF, gn_iters: int = 10, cg_iters: int = 64,
              lm_lambda: float = 0.02) -> PoseGraph4DoF:
     """optimize4DoF :406-582: sequential 4-neighbour edges + loop edges,
     batched GN + block-Jacobi PCG over (x, y, z, yaw) per node, annealed
     Huber on the loop edges, LM damping relative to the block diagonal.
-    Returns a new graph with the solved p and yaw."""
-    N = graph.p.shape[0]
+    Returns a new graph with the solved p and yaw. On the card one graph
+    replay ("posegraph4dof_optimize", keyed on the iteration counts, the
+    damping and the graph's capacities), the reference's jit with static
+    gn_iters / cg_iters / lm_lambda. No lock is taken for its capture: its
+    callers (the pipeline's visual-loop steps) hold the pipeline's step
+    lock."""
+    if graphs.use_graph(graph.p):
+        body = functools.partial(_optimize_body, gn_iters=gn_iters, cg_iters=cg_iters,
+                                 lm_lambda=lm_lambda)
+        p, yaw = graphs.step("posegraph4dof_optimize", body, (graph,),
+                             static=(gn_iters, cg_iters, float(lm_lambda)))
+    else:
+        p, yaw = _optimize_body(graph, gn_iters, cg_iters, lm_lambda)
+    return graph._replace(p=p, yaw=yaw)
+
+
+def _optimize_body(graph: PoseGraph4DoF, gn_iters: int, cg_iters: int, lm_lambda: float):
+    """optimize's solved (p, yaw): reads nothing on the host and copies no
+    host data to the device (its index tables and constants are
+    `host_constant`s). The per-node sums of edge blocks are in a fixed
+    order (a table gather for the sequential edges, a one-hot product for
+    the loop edges) where the reference scatters with `.at[].add`: an
+    index_add on the card sums in atomic order, and a replay would not be
+    bit for bit its body."""
+    N, L = graph.p.shape[0], graph.loop_i.shape[0]
     dtype, dev = graph.p.dtype, graph.p.device
-    active = (torch.arange(N, device=dev) < graph.n_nodes).to(dtype)[:, None]
+    seq_i_np, seq_j_np, table_np = _seq_edges(N)
+    n_seq = seq_i_np.shape[0]
+    idx = host_constant(np.arange(N), torch.int64, dev)
+    active = (idx < graph.n_nodes).to(dtype)[:, None]
 
     # sequential edges (i, i + k), k = 1..SEQ_NEIGHBORS, measured from the
     # immutable insert-time VIO poses
-    idx = torch.arange(N, device=dev)
-    seq_i = idx.repeat(SEQ_NEIGHBORS)
-    seq_j = torch.cat([torch.clamp(idx + k, max=N - 1) for k in range(1, SEQ_NEIGHBORS + 1)])
+    seq_i = host_constant(seq_i_np, torch.int64, dev)
+    seq_j = host_constant(seq_j_np, torch.int64, dev)
+    table = host_constant(table_np, torch.int64, dev)
     seq_valid = ((seq_j < graph.n_nodes) & (seq_j > seq_i)
                  & (graph.seq[seq_i] == graph.seq[seq_j]))
     R_i0 = _R_ypr(graph.vio_yaw[seq_i], graph.pitch[seq_i], graph.roll[seq_i])
     seq_t = torch.einsum("nji,nj->ni", R_i0, graph.vio_p[seq_j] - graph.vio_p[seq_i])
     seq_yaw = graph.vio_yaw[seq_j] - graph.vio_yaw[seq_i]
 
-    ei = torch.cat([seq_i, graph.loop_i.to(torch.int64)])
-    ej = torch.cat([seq_j, graph.loop_j.to(torch.int64)])
+    loop_i, loop_j = graph.loop_i.to(torch.int64), graph.loop_j.to(torch.int64)
+    ei = torch.cat([seq_i, loop_i])
+    ej = torch.cat([seq_j, loop_j])
     t_m = torch.cat([seq_t, graph.loop_t])
     yaw_m = torch.cat([seq_yaw, graph.loop_yaw])
     loop_ok = graph.loop_valid & (graph.loop_j < graph.n_nodes)
     valid = torch.cat([seq_valid, loop_ok]).to(dtype)[:, None]
-    n_seq = seq_i.shape[0]
-    w = torch.cat([torch.as_tensor(SEQ_W, device=dev).expand(n_seq, 4),
-                   torch.as_tensor(LOOP_W, device=dev).expand(graph.loop_i.shape[0], 4)]).to(dtype)
-    is_loop = torch.arange(ei.shape[0], device=dev) >= n_seq
+    w = torch.cat([host_constant(SEQ_W, dtype, dev).expand(n_seq, 4),
+                   host_constant(LOOP_W, dtype, dev).expand(L, 4)])
+    is_loop = host_constant(np.arange(n_seq + L) >= n_seq, torch.bool, dev)
     pr = torch.stack([graph.pitch, graph.roll], dim=-1)
-    eye4 = torch.eye(4, dtype=dtype, device=dev)
+    eye4 = host_constant(np.eye(4), dtype, dev)
+    # (N, L) one-hots of the loop edges' nodes
+    onehot_i = (loop_i[None, :] == idx[:, None]).to(dtype)
+    onehot_j = (loop_j[None, :] == idx[:, None]).to(dtype)
 
     def scatter(rows_i, rows_j):
         """Per-node sums of per-edge blocks at the edges' i and j nodes."""
-        out = torch.zeros((N,) + rows_i.shape[1:], dtype=dtype, device=dev)
-        return out.index_add(0, ei, rows_i).index_add(0, ej, rows_j)
+        tail = rows_i.shape[1:]
+        flat_i, flat_j = rows_i.reshape(rows_i.shape[0], -1), rows_j.reshape(rows_j.shape[0], -1)
+        stacked = torch.cat([flat_i[:n_seq], flat_j[:n_seq], torch.zeros_like(flat_i[:1])])
+        out = stacked[table].sum(dim=1)
+        out = out + onehot_i @ flat_i[n_seq:] + onehot_j @ flat_j[n_seq:]
+        return out.reshape((N,) + tail)
 
     p, yaw = graph.p, graph.yaw
     for it in range(gn_iters):
@@ -181,23 +241,23 @@ def optimize(graph: PoseGraph4DoF, gn_iters: int = 10, cg_iters: int = 64,
         JTr = torch.einsum("erd,er->ed", J, r)
         b = -scatter(JTr[:, :4], JTr[:, 4:])
         prior_r = torch.cat([p[0] - graph.p[0], (yaw[0] - graph.yaw[0])[None]])
-        b = b.index_add(0, idx[:1], (-PRIOR_W * prior_r)[None])
+        b = torch.cat([b[:1] - PRIOR_W * prior_r[None], b[1:]])
 
         Ji, Jj = J[:, :, :4], J[:, :, 4:]
         Pblk = scatter(torch.einsum("erd,erc->edc", Ji, Ji), torch.einsum("erd,erc->edc", Jj, Jj))
-        Pblk = Pblk.index_add(0, idx[:1], (PRIOR_W * eye4)[None])
+        Pblk = torch.cat([Pblk[:1] + PRIOR_W * eye4[None], Pblk[1:]])
         # LM damping relative to the block diagonal: undamped GN oscillates
         # on long chains through the yaw-translation coupling
         diag_damp = lm_lambda * torch.diagonal(Pblk, dim1=1, dim2=2)
         Pblk = Pblk + torch.diag_embed(diag_damp) + 1e-4 * eye4
-        Pinv = torch.linalg.inv_ex(Pblk)[0]
+        Pinv = torch.linalg.inv_ex(Pblk)[0]  # no error check: no host read
 
         def matvec(v):
             ve = torch.cat([v[ei], v[ej]], dim=-1)
             u = torch.einsum("erd,ed->er", J, ve)
             JTu = torch.einsum("erd,er->ed", J, u)
             out = scatter(JTu[:, :4], JTu[:, 4:])
-            out = out.index_add(0, idx[:1], PRIOR_W * v[:1])
+            out = torch.cat([out[:1] + PRIOR_W * v[:1], out[1:]])
             out = out + diag_damp * v  # LM damping (matches the preconditioner)
             return (out + 1e-6 * v) * active
 
@@ -221,7 +281,7 @@ def optimize(graph: PoseGraph4DoF, gn_iters: int = 10, cg_iters: int = 64,
             rz = rz_new
         x = torch.clamp(x, -2.0, 2.0) * active
         p, yaw = p + x[:, :3], yaw + x[:, 3]
-    return graph._replace(p=p, yaw=yaw)
+    return p, yaw
 
 
 def drift_transform(graph_before: PoseGraph4DoF, graph_after: PoseGraph4DoF, node: int):

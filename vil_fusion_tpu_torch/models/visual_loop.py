@@ -22,7 +22,25 @@ reference's float32 arrays. The RANSAC of `find_connection` draws from a
 CPU torch.Generator seeded with the DB's call count (the reference keys
 its threefry the same way); `sel=` injects the sample indices.
 
-Two deviations from the reference, each a fix of a reference bug:
+The reference's jitted programs are CUDA graphs on the card
+(`utils/graphs.step`; the first call of a key runs the body, the second
+captures, later calls replay): the keyframe's descriptors, extra corners,
+their rays, the densification's depths and the BoW histogram
+(`_keyframe_values`, graph "vl_keyframe"; one host read follows, then the
+store's numpy bookkeeping), a verification's Hamming match ("vl_match") and
+PnP RANSAC ("pnp_ransac", its uniforms drawn on the host before the replay
+and uploaded with the verification's inputs; the seeds' and the relative
+pose's small algebra on the host) and the 4-DoF solve
+("posegraph4dof_optimize"). The CPU runs the
+same bodies eagerly. No lock is taken for their captures: the pipeline
+calls the DB with its step lock held (models/posegraph4dof.py). Host
+arrays go to the card through pinned memory without waiting
+(`graphs.upload`).
+
+Two deviations from the reference, each a fix of a reference bug (and two
+of placement: the RANSAC's uniforms are drawn on the host before the PnP
+graph, and the extra corners are lifted to rays on the device, inside the
+keyframe program, where the reference lifts them on the host):
   * the drift bound of `find_connection` (a share of the path between the
     two keyframes, counted by their indices) applies to loops within one
     session only: between two sessions the index distance says nothing of
@@ -35,6 +53,7 @@ Two deviations from the reference, each a fix of a reference bug:
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -44,6 +63,7 @@ from vil_fusion_tpu_torch.models import brief, cameras, depth_association
 from vil_fusion_tpu_torch.models import posegraph4dof as pg4
 from vil_fusion_tpu_torch.ops import image as im
 from vil_fusion_tpu_torch.ops import lie
+from vil_fusion_tpu_torch.utils import graphs
 
 MIN_LOOP_NUM = 25  # keyframe.cpp MIN_LOOP_NUM
 MAX_YAW_DEG = 30.0
@@ -80,6 +100,100 @@ def _qmul_np(a, b):
     return lie.qmul(_f32(a), _f32(b)).numpy()
 
 
+def _to_bits(x):
+    """x as int32 rows of its bits (float32 viewed, bool and int32 cast), for
+    one host read of several leaves."""
+    if x.dtype == torch.float32:
+        return x.reshape(-1).view(torch.int32)
+    return x.reshape(-1).to(torch.int32)
+
+
+def _from_bits(host, shapes_dtypes):
+    """Split one host read of `_to_bits` rows back into numpy arrays."""
+    out, o = [], 0
+    for shape, dtype in shapes_dtypes:
+        n = int(np.prod(shape))
+        part = host[o:o + n].reshape(shape)
+        o += n
+        out.append(part.view(np.float32) if dtype == np.float32 else part.astype(dtype))
+    return out
+
+
+class KeyframeValues(NamedTuple):
+    """What the keyframe program computes (`_keyframe_values`)."""
+    win_desc: torch.Tensor  # (win_cap, 8) int32 BRIEF of the window points
+    extra_desc: torch.Tensor  # (extra_cap, 8) int32 BRIEF of the extra corners
+    extra_valid: torch.Tensor  # (extra_cap,) bool
+    extra_xy: torch.Tensor  # (extra_cap, 2) the extra corners' normalized rays
+    depth: Optional[torch.Tensor]  # (extra_cap,) feature_depth of the rays (with a cloud)
+    depth_ok: Optional[torch.Tensor]  # (extra_cap,) bool
+    hist: torch.Tensor  # (N_WORDS,) the BoW histogram over both descriptor sets
+    host: torch.Tensor  # the leaves above but the histogram, as int32 bits (`_to_bits`)
+
+
+def _lift(cam, px):
+    """Normalized rays (x / z, y / z) of pixels (N, 2), z clamped at 1e-6:
+    the reference's `_lift`, on the tensor's device."""
+    ray = cameras.lift(cam, px)
+    z = torch.clamp(ray[:, 2], min=1e-6)
+    return ray[:, :2] / z[:, None]
+
+
+def _keyframe_values(img, wxy, wval, cloud_cam, cloud_valid, cam, cfg: "VisualLoopConfig",
+                     min_incidence=None) -> KeyframeValues:
+    """The keyframe program's pure part (add_keyframe's device work): the
+    window points' descriptors, the extra corners (detected independently of
+    the window points, keyframe.cpp computeBRIEFPoint) with their
+    descriptors and rays, their lidar depths where `cloud_cam` is given
+    (camera-frame cloud; None: no densification), and the BoW histogram
+    over both descriptor sets. Writes nothing; reads nothing on the host."""
+    dev = img.device
+    wdesc = brief.brief_descriptors(img, wxy, wval)
+    exy, evalid = im.detect_features(
+        img, torch.zeros((1, 2), dtype=torch.float32, device=dev),
+        torch.zeros((1,), dtype=torch.bool, device=dev), max_pts=cfg.extra_cap, min_dist=10)
+    edesc = brief.brief_descriptors(img, exy, evalid)
+    ray = _lift(cam, exy)
+    dep = okd = None
+    if cloud_cam is not None:
+        dep, okd = depth_association.feature_depth(ray, evalid, cloud_cam, cloud_valid,
+                                                   min_incidence=min_incidence)
+    words = brief.words_of(torch.cat([wdesc, edesc], dim=0))
+    hist = brief.word_histogram(words, torch.cat([wval, evalid], dim=0))
+    host = torch.cat([_to_bits(x) for x in (wdesc, edesc, evalid, ray, dep, okd)
+                      if x is not None])
+    return KeyframeValues(wdesc, edesc, evalid, ray, dep, okd, hist, host)
+
+
+def _match_values(desc_a, valid_a, desc_b, valid_b):
+    """brief.match's gate `ok` and one int64 row (idx, ok) for the host."""
+    idx, ok = brief.match(desc_a, valid_a, desc_b, valid_b)
+    return ok, torch.cat([idx, ok.to(torch.int64)])
+
+
+def match_values(desc_a, valid_a, desc_b, valid_b):
+    """`_match_values`; on the card one replay of its graph ("vl_match",
+    keyed on the shapes): a verification's Hamming match, some forty small
+    kernels eagerly."""
+    args = (desc_a, valid_a, desc_b, valid_b)
+    if graphs.use_graph(desc_a):
+        return graphs.step("vl_match", _match_values, args)
+    return _match_values(*args)
+
+
+def keyframe_values(img, wxy, wval, cloud_cam, cloud_valid, cam, cfg: "VisualLoopConfig",
+                    min_incidence=None) -> KeyframeValues:
+    """`_keyframe_values`; on the card one replay of its graph
+    ("vl_keyframe", keyed on the camera, the configuration, the depth
+    threshold, whether a cloud is given, and the shapes)."""
+    fn = functools.partial(_keyframe_values, cam=cam, cfg=cfg, min_incidence=min_incidence)
+    args = (img, wxy, wval, cloud_cam, cloud_valid)
+    if graphs.use_graph(img):
+        return graphs.step("vl_keyframe", fn, args,
+                           static=(cam, cfg, min_incidence, cloud_cam is not None))
+    return fn(*args)
+
+
 class VisualLoopDB:
     """Host-side keyframe store with device-resident BoW histograms and
     4-DoF graph. `min_incidence` is the rig's depth_min_incidence (None:
@@ -108,6 +222,7 @@ class VisualLoopDB:
         # corrected q / p / win_pts3d from these, so corrections never compound
         self.vio_q = np.zeros((C, 4), np.float32)
         self.vio_pts3d = np.zeros((C, cfg.win_cap, 3), np.float32)
+        self.seq = np.zeros((C,), np.int32)  # the graph's session ids, on the host
         self.graph = pg4.init_graph(C, dtype=dtype, device=self.device)
         self.n = 0
         self._ransac_calls = 0
@@ -123,7 +238,7 @@ class VisualLoopDB:
     def _dev(self, x, dtype=None):
         if isinstance(x, torch.Tensor):
             return x.to(self.device, dtype)
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        return graphs.upload(x, self.device, dtype)
 
     # ------------------------------------------------------------------
     def add_keyframe(self, img, q_wb, p_wb, pts3d_w, pts2d_px, pts_valid, cam,
@@ -134,47 +249,46 @@ class VisualLoopDB:
         (world); pts2d_px: their pixel coordinates. cloud_cam / cloud_valid:
         this frame's camera-frame LiDAR cloud (device tensors), whose depths
         turn extra corners into more 3-D anchors. `sequence` tags the
-        session: sequential graph edges never cross sessions."""
+        session: sequential graph edges never cross sessions. The device
+        work is `keyframe_values` (a graph replay on the card), then one
+        host read."""
         cfg = self.cfg
         if self.n >= cfg.capacity:
             return None
         i = self.n
         img = self._dev(img, torch.float32)
 
-        # window-point descriptors
+        # window-point descriptors; extra corners, detected independently
+        # of the window points (keyframe.cpp computeBRIEFPoint); with a
+        # cloud, their lidar depths
         wn = min(len(pts2d_px), cfg.win_cap)
         wxy = np.zeros((cfg.win_cap, 2), np.float32)
         wval = np.zeros((cfg.win_cap,), bool)
         wxy[:wn] = pts2d_px[:wn]
         wval[:wn] = pts_valid[:wn]
-        wval_dev = self._dev(wval)
-        wdesc = brief.brief_descriptors(img, self._dev(wxy), wval_dev)
-        self.win_desc[i] = wdesc.cpu().numpy()
+        densify = cloud_cam is not None and wn < cfg.win_cap
+        kv = keyframe_values(img, graphs.upload(wxy, self.device),
+                             graphs.upload(wval, self.device),
+                             cloud_cam if densify else None, cloud_valid if densify else None,
+                             cam, cfg, self.min_incidence)
+        E = cfg.extra_cap
+        parts = [((cfg.win_cap, 8), np.int32), ((E, 8), np.int32), ((E,), bool),
+                 ((E, 2), np.float32)] + ([((E,), np.float32), ((E,), bool)] if densify else [])
+        host = _from_bits(kv.host.cpu().numpy(), parts)  # the keyframe's one host read
+        wdesc, edesc_np, evalid_np, ray = host[:4]
+        self.win_desc[i] = wdesc
         self.win_pts3d[i, :wn] = pts3d_w[:wn]
         self.win_valid[i] = wval
-
-        # extra corners, detected independently of the window points
-        # (keyframe.cpp computeBRIEFPoint)
-        exy, evalid = im.detect_features(
-            img, torch.zeros((1, 2), dtype=torch.float32, device=self.device),
-            torch.zeros((1,), dtype=torch.bool, device=self.device),
-            max_pts=cfg.extra_cap, min_dist=10)
-        edesc = brief.brief_descriptors(img, exy, evalid)
-        edesc_np = edesc.cpu().numpy()
         self.extra_desc[i] = edesc_np
-        evalid_np = evalid.cpu().numpy()
-        ray = self._lift(cam, exy.cpu().numpy())
         self.extra_xy[i] = ray
         self.extra_valid[i] = evalid_np
 
         # lidar-depthed extras -> more 3-D anchors in the window set
-        if cloud_cam is not None and wn < cfg.win_cap:
-            dep, okd = depth_association.feature_depth(
-                self._dev(ray), evalid, cloud_cam, cloud_valid, min_incidence=self.min_incidence)
-            dep = dep.cpu().numpy()
+        if densify:
+            dep, okd = host[4], host[5]
             # strong (positive) depths only: grazing depths are bias-prone
             # and these points anchor the loop PnP
-            okd = okd.cpu().numpy() & (dep > 0)
+            okd = okd & (dep > 0)
             sel = np.nonzero(okd)[0][: cfg.win_cap - wn]
             if len(sel):
                 R_wb = lie.q2R(_f32(q_wb)).numpy().astype(np.float64)
@@ -188,25 +302,20 @@ class VisualLoopDB:
                 self.win_valid[i, wn:wn + m] = True
 
         # BoW histogram over all descriptors
-        words = brief.words_of(torch.cat([wdesc, edesc], dim=0))
-        self.hists[i] = brief.word_histogram(words, torch.cat([wval_dev, evalid], dim=0))
+        self.hists[i] = kv.hist
 
         self.q[i] = np.asarray(q_wb)
         self.p[i] = np.asarray(p_wb)
         self.vio_q[i] = np.asarray(q_wb)
         self.vio_pts3d[i] = self.win_pts3d[i]
         ypr = _ypr_deg(q_wb) * np.pi / 180.0
-        f32 = dict(dtype=torch.float32, device=self.device)
-        self.graph = pg4.add_node(self.graph, torch.as_tensor(np.asarray(p_wb), **f32),
-                                  float(ypr[0]), float(ypr[1]), float(ypr[2]), sequence)
+        node = graphs.upload(np.concatenate([np.asarray(p_wb, np.float32),
+                                             np.asarray(ypr, np.float32)]), self.device)
+        self.graph = pg4.add_node(self.graph, node[:3], node[3], node[4], node[5],
+                                  graphs.upload(np.int32(sequence), self.device))
+        self.seq[i] = sequence
         self.n += 1
         return i
-
-    @staticmethod
-    def _lift(cam, px):
-        ray = cameras.lift(cam, _f32(px)).numpy()
-        z = np.maximum(ray[:, 2], 1e-6)
-        return (ray[:, :2] / z[:, None]).astype(np.float32)
 
     # ------------------------------------------------------------------
     def detect_candidates(self, i_query: int):
@@ -258,18 +367,21 @@ class VisualLoopDB:
         current 3-D points against the old normalized observations; accept
         on the inlier count and the yaw / translation gates.
 
-        `sel` (n_hyp, 6) injects the RANSAC's sample indices. Returns None
-        or (q_old_cur, p_old_cur) as numpy: the current keyframe's pose in
-        the old keyframe's frame."""
+        `sel` (n_hyp, 6) injects the RANSAC's sample indices (else its
+        uniforms are drawn here, on the host, and uploaded with the PnP's
+        inputs). Returns None or (q_old_cur, p_old_cur) as numpy: the
+        current keyframe's pose in the old keyframe's frame."""
         cfg = self.cfg
         st = self.stats
         st["verify_attempts"] += 1
-        idx, ok = brief.match(
-            self._dev(self.win_desc[i_cur]), self._dev(self.win_valid[i_cur]),
-            self._dev(self.extra_desc[i_old]), self._dev(self.extra_valid[i_old]))
-        idx = idx.cpu().numpy()
-        ok = ok.cpu().numpy()
-        n_match = int(ok.sum())
+        dev = self.device
+        ok, host = match_values(
+            graphs.upload(self.win_desc[i_cur], dev), graphs.upload(self.win_valid[i_cur], dev),
+            graphs.upload(self.extra_desc[i_old], dev), graphs.upload(self.extra_valid[i_old], dev))
+        host = host.cpu().numpy()  # one read: the matches and the gate
+        N = cfg.win_cap
+        idx, ok_np = host[:N], host[N:] > 0
+        n_match = int(ok_np.sum())
         st["hamming_matches"].append(n_match)
         if n_match < MIN_LOOP_NUM:
             st["kill_hamming"] += 1
@@ -281,20 +393,37 @@ class VisualLoopDB:
         # the old keyframe's stored pose (exact without drift) and the
         # current keyframe's camera pose (within metres of the solution
         # under accumulated drift: a loop means "same place")
-        f32 = dict(dtype=torch.float32, device=self.device)
-        ext = (self._dev(self.qic, torch.float32), self._dev(self.tic, torch.float32))
-        q0, p0 = lie.pose_compose((torch.as_tensor(self.q[i_old], **f32),
-                                   torch.as_tensor(self.p[i_old], **f32)), ext)
-        q_cur = torch.as_tensor(self.q[i_cur], **f32)
-        p_cur = torch.as_tensor(self.p[i_cur], **f32)
-        q0b, p0b = lie.pose_compose((q_cur, p_cur), ext)
         self._ransac_calls += 1
-        gen = torch.Generator().manual_seed(self._ransac_calls)
+        u = None
+        if sel is None:
+            u = ransac_uniforms(cfg.pnp_ransac_hyp, N,
+                                torch.Generator().manual_seed(self._ransac_calls))
+        # the seeds' small pose algebra on the host (CPU float32)
+        ext = (_f32(self.qic), _f32(self.tic))
+        q_cur, p_cur = _f32(self.q[i_cur]), _f32(self.p[i_cur])
+        q0, p0 = lie.pose_compose((_f32(self.q[i_old]), _f32(self.p[i_old])), ext)
+        q0b, p0b = lie.pose_compose((q_cur, p_cur), ext)
+        parts = [pts3d, obs_old, q0, p0, q0b, p0b] + ([] if u is None else [u])
+        flat = graphs.upload(np.concatenate([np.asarray(x, np.float32).reshape(-1)
+                                             for x in parts]), dev)  # one upload
+        o = [0]
+
+        def take(*shape):
+            n = int(np.prod(shape))
+            o[0] += n
+            return flat[o[0] - n:o[0]].reshape(shape)
+
+        pts3d_d, obs_d = take(N, 3), take(N, 2)
+        q0, p0, q0b, p0b = take(4), take(3), take(4), take(3)
+        u_d = None if u is None else take(cfg.pnp_ransac_hyp, N)
         q_pnp_c, p_pnp_c, inl = pnp_ransac(
-            torch.as_tensor(pts3d, **f32), torch.as_tensor(obs_old, **f32), self._dev(ok),
-            q0, p0, q0_alt=q0b, p0_alt=p0b, n_hyp=cfg.pnp_ransac_hyp,
-            inlier_tol=cfg.pnp_inlier_px, generator=gen, sel=sel)
-        n_inl = int(inl.sum())
+            pts3d_d, obs_d, ok, q0, p0, q0_alt=q0b, p0_alt=p0b, n_hyp=cfg.pnp_ransac_hyp,
+            inlier_tol=cfg.pnp_inlier_px, u=u_d, sel=sel)
+        host = torch.cat([inl.sum().to(torch.float32)[None], q_pnp_c, p_pnp_c]).cpu()  # one read
+        n_inl = int(host[0])
+        # back to a body pose; relative pose T_old_cur = T_old^-1 T_cur (host)
+        q_pnp, p_pnp = lie.pose_compose((host[1:5], host[5:8]), lie.pose_inverse(ext))
+        q_rel, p_rel = (x.numpy() for x in lie.pose_between((q_pnp, p_pnp), (q_cur, p_cur)))
         st["pnp_inliers"].append(n_inl)
         if n_inl < MIN_LOOP_NUM or n_inl < 0.45 * n_match:
             # count gate = reference (MIN_LOOP_NUM); the fraction floor is
@@ -302,16 +431,12 @@ class VisualLoopDB:
             # repetitive scene
             st["kill_pnp"] += 1
             return None
-        # back to a body pose; relative pose T_old_cur = T_old^-1 T_cur
-        q_pnp, p_pnp = lie.pose_compose((q_pnp_c, p_pnp_c), lie.pose_inverse(ext))
-        q_rel, p_rel = lie.pose_between((q_pnp, p_pnp), (q_cur, p_cur))
-        q_rel, p_rel = q_rel.cpu().numpy(), p_rel.cpu().numpy()
         ypr = _ypr_deg(q_rel)
         # |yaw| / ||t|| gates at the reference's constants plus its drift-model
         # bound (~8% of the path between the keyframes + slack), within a
         # session only: across sessions the indices do not measure the path
         t_bound = MAX_TRANS
-        if int(self.graph.seq[i_cur]) == int(self.graph.seq[i_old]):
+        if self.seq[i_cur] == self.seq[i_old]:
             path_since = abs(i_cur - i_old) * cfg.keyframe_gap
             t_bound = min(MAX_TRANS, max(2.0, 0.08 * path_since + 2.0 * cfg.keyframe_gap))
         if abs(ypr[0]) > MAX_YAW_DEG or float(np.linalg.norm(p_rel)) > t_bound:
@@ -323,9 +448,10 @@ class VisualLoopDB:
     def close_loop(self, i_cur: int, i_old: int, q_rel, p_rel):
         """Add the loop edge (4-DoF form) and re-optimize the graph."""
         ypr_rel = _ypr_deg(q_rel)
-        self.graph = pg4.add_loop(
-            self.graph, i_old, i_cur, self._dev(np.asarray(p_rel, np.float32)),
-            float(np.float32(np.deg2rad(ypr_rel[0]))))
+        edge = graphs.upload(np.append(np.asarray(p_rel, np.float32).reshape(3),
+                                       np.float32(np.deg2rad(ypr_rel[0]))), self.device)
+        ij = graphs.upload(np.array([i_old, i_cur], np.int32), self.device)
+        self.graph = pg4.add_loop(self.graph, ij[0], ij[1], edge[:3], edge[3])
         self.graph = pg4.optimize(self.graph)
         return self.graph
 
@@ -436,6 +562,8 @@ class VisualLoopDB:
             a[: len(d[key])] = self._dev(d[key], a.dtype)
             return a
 
+        if "graph_seq" in d:
+            self.seq[: len(d["graph_seq"])] = d["graph_seq"]
         g = self.graph
         self.graph = g._replace(
             p=put(g.p, "graph_p"), yaw=put(g.yaw, "graph_yaw"), pitch=put(g.pitch, "graph_pitch"),
@@ -476,33 +604,62 @@ def _pnp_gn(pts3d, obs, masks, q, p, iters: int):
     return q, p, torch.linalg.norm(pc[..., :2] / z[..., None] - obs, dim=-1)
 
 
+def ransac_uniforms(n_hyp: int, n: int, generator=None):
+    """The PnP RANSAC's uniforms (n_hyp, n) on the host (CPU float32), from
+    `generator`: `pnp_ransac`'s draws, taken before its graph."""
+    return torch.rand((n_hyp, n), generator=generator, dtype=torch.float32)
+
+
 def pnp_ransac(pts3d, obs, valid, q0, p0, q0_alt=None, p0_alt=None, n_hyp: int = 64,
-               inlier_tol: float = 3.0 / 460.0, generator=None, sel=None):
+               inlier_tol: float = 3.0 / 460.0, generator=None, sel=None, u=None):
     """Batched PnP RANSAC (PnPRANSAC keyframe.cpp:200-256): each hypothesis
     refines from a prior pose on a random 6-point subset (6 GN iterations),
     then the best-by-inliers pose is refined three times on its growing
     inlier set. With (q0_alt, p0_alt) the hypotheses alternate between the
     two seeds (even -> q0 / p0, odd -> alt).
 
-    `sel` (n_hyp, 6) gives the samples; else each hypothesis takes the 6
-    valid correspondences of smallest uniform draw from `generator` (a CPU
-    generator; invalid ones sort last). Returns (q, p, inliers)."""
+    `sel` (n_hyp, 6) gives the samples (the body runs eagerly); else each
+    hypothesis takes the 6 valid correspondences of smallest uniform in `u`
+    (n_hyp, N) (invalid ones sort last), by default drawn on the host from
+    `generator` (`ransac_uniforms`). On the card that runs as one replay of
+    the graph "pnp_ransac" (keyed on n_hyp, inlier_tol and N). Returns (q,
+    p, inliers)."""
     if q0_alt is None:
         q0_alt, p0_alt = q0, p0
+    if sel is not None:
+        sel = torch.as_tensor(sel, dtype=torch.int64, device=pts3d.device)
+        return _pnp_ransac_sel(pts3d, obs, valid, q0, p0, q0_alt, p0_alt, sel, n_hyp,
+                               inlier_tol)
+    if u is None:
+        u = ransac_uniforms(n_hyp, pts3d.shape[0], generator).to(pts3d.device, pts3d.dtype)
+    args = (pts3d, obs, valid, q0, p0, q0_alt, p0_alt, u)
+    body = functools.partial(_pnp_ransac_body, n_hyp=n_hyp, inlier_tol=inlier_tol)
+    if graphs.use_graph(pts3d):
+        return graphs.step("pnp_ransac", body, args, static=(n_hyp, float(inlier_tol)))
+    return body(*args)
+
+
+def _pnp_ransac_body(pts3d, obs, valid, q0, p0, q0_alt, p0_alt, u, n_hyp: int,
+                     inlier_tol: float):
+    """pnp_ransac on the uniforms `u`: reads nothing on the host."""
+    sel = torch.argsort(u - 10.0 * valid[None, :].to(u.dtype), dim=1, stable=True)[:, :6]
+    return _pnp_ransac_sel(pts3d, obs, valid, q0, p0, q0_alt, p0_alt, sel, n_hyp, inlier_tol)
+
+
+def _pnp_ransac_sel(pts3d, obs, valid, q0, p0, q0_alt, p0_alt, sel, n_hyp: int,
+                    inlier_tol: float):
+    """pnp_ransac on the samples `sel` (n_hyp, 6) int64."""
     N = pts3d.shape[0]
     dtype, dev = pts3d.dtype, pts3d.device
-    if sel is None:
-        u = torch.rand((n_hyp, N), generator=generator, dtype=dtype).to(dev)
-        sel = torch.argsort(u - 10.0 * valid[None, :].to(dtype), dim=1, stable=True)[:, :6]
-    sel = torch.as_tensor(sel, dtype=torch.int64, device=dev)
     masks = torch.zeros((n_hyp, N), dtype=dtype, device=dev).scatter(
         1, sel, 1.0) * valid.to(dtype)[None, :]
-    a = (torch.arange(n_hyp, device=dev) % 2).to(dtype)[:, None]
+    a = graphs.host_constant(np.arange(n_hyp) % 2, dtype, dev)[:, None]
     qs = lie.qnormalize(q0[None] * (1.0 - a) + q0_alt[None] * a)
     ps = p0[None] * (1.0 - a) + p0_alt[None] * a
     qs, ps, rep = _pnp_gn(pts3d, obs, masks, qs, ps, iters=6)
-    b = torch.argmax((valid[None] & (rep < inlier_tol)).sum(dim=1))
-    q, p = qs[b:b + 1], ps[b:b + 1]
+    # the best hypothesis by inliers; index_select reads no index on the host
+    b = torch.argmax((valid[None] & (rep < inlier_tol)).sum(dim=1)).reshape(1)
+    q, p = qs.index_select(0, b), ps.index_select(0, b)
     # iterated refinement on the growing inlier set (solvePnPRansac's
     # internal LM refinement does the same)
     for _ in range(3):

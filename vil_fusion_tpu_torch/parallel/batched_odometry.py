@@ -24,7 +24,8 @@ def odometry_step_sharded(mesh: Mesh, states: lo.MapState, points, valid,
     """One step of S sequences, S split over the ranks. `states` holds this
     rank's sequences (`shard_states`); `points` (S, N, 3) / `valid` (S, N)
     are the whole batch, of which the rank takes its rows. Returns this
-    rank's (states, outputs), as odometry_step_batched does for its rows."""
+    rank's (states, outputs), as odometry_step_batched does for its rows
+    (on a card a steady step replays that step's graph)."""
     points = shard_rows(mesh, points).to(mesh.device)
     valid = shard_rows(mesh, valid).to(mesh.device)
     return lo.odometry_step_batched(states, points, valid, cfg, frame_count=frame_count)

@@ -148,17 +148,6 @@ def _odom_config(rig: RigConfig, odom_overrides: Optional[dict]) -> lo.OdomConfi
     return cfg
 
 
-def _upload(x, device) -> torch.Tensor:
-    """A host array on `device`. On the card through pinned memory and
-    without waiting for the stream (a pageable copy would wait for every
-    kernel enqueued before it); the caching host allocator keeps the pinned
-    block until the copy is done."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if torch.device(device).type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 def frame_seed(t: float) -> int:
     """The frame's RANSAC seed, derived on the host from the float64
     timestamp: floor(t * 1000) & 0x7FFFFFFF (the reference derives its key
@@ -480,7 +469,11 @@ class VILFusionPipeline:
     relocalization feedback into the estimator window. With sync_depth > 0
     it runs on a worker thread, issuing on the main thread's CUDA stream;
     `vl_errors` counts the worker's exceptions (each is printed and skipped,
-    as in the reference).
+    as in the reference). On the card its programs replay CUDA graphs
+    ("vl_keyframe", "vl_match", "pnp_ransac", "posegraph4dof_optimize"),
+    captured by the worker while it holds the pipeline's step lock (the
+    lock the main thread's captures take), beside the main thread's
+    replays.
 
     `device` places every state tensor (tracker, maps, estimator window,
     pose graphs, ScanContext and keyframe databases, keyframe clouds);
@@ -720,13 +713,13 @@ class VILFusionPipeline:
         dequantized on the device; float points pass through."""
         if getattr(pts, "dtype", None) == np.int16:
             n = pts.shape[0]
-            return _dequant_scan(_upload(pts, self.device), _upload(val, self.device),
-                                 self.scan_quant, n)
-        return (_upload(np.asarray(pts, np.float32), self.device),
-                _upload(np.asarray(val, bool), self.device))
+            return _dequant_scan(graphs.upload(pts, self.device),
+                                 graphs.upload(val, self.device), self.scan_quant, n)
+        return (graphs.upload(np.asarray(pts, np.float32), self.device),
+                graphs.upload(np.asarray(val, bool), self.device))
 
     def _image_dev(self, img):
-        img_dev = _upload(img, self.device)
+        img_dev = graphs.upload(img, self.device)
         return img_dev.to(torch.float32) if img_dev.dtype == torch.float64 else img_dev
 
     # ------------------------------------------------------------------
@@ -794,8 +787,8 @@ class VILFusionPipeline:
     def _imu_for_frame(self, t):
         """The frame's padded IMU segment on the device and its host count."""
         acc_b, gyr_b, dt_b, n_imu = self.estimator._pack_imu(*self._imu_segment_for_frame(t))
-        return (_upload(acc_b, self.device), _upload(gyr_b, self.device),
-                _upload(dt_b, self.device), n_imu)
+        return (graphs.upload(acc_b, self.device), graphs.upload(gyr_b, self.device),
+                graphs.upload(dt_b, self.device), n_imu)
 
     def _try_process(self):
         if self.mode == "lidar":
@@ -923,7 +916,8 @@ class VILFusionPipeline:
         with GLOBAL_TIMERS.timed("tracker"):
             self.tracker_state, obs = _track(
                 self.tracker_state, img_dev, t, self.fe, self.tracker_frames > 0, self.generator,
-                dyn_mask=None if mask is None else _upload(np.asarray(mask, bool), self.device),
+                dyn_mask=(None if mask is None
+                          else graphs.upload(np.asarray(mask, bool), self.device)),
                 capture_lock=self.estimator.capture_lock)
             self.tracker_frames += 1
         return obs
@@ -981,8 +975,8 @@ class VILFusionPipeline:
             # quantized scans upload raw (int16 + packed bits), vil_frame
             # dequantizes on the device and returns the f32 cloud
             if getattr(pts, "dtype", None) == np.int16:
-                pts_dev = _upload(pts, self.device)
-                val_dev = _upload(val, self.device)
+                pts_dev = graphs.upload(pts, self.device)
+                val_dev = graphs.upload(val, self.device)
             else:
                 pts_dev, val_dev = self._scan_dev(pts, val)
             acc_b, gyr_b, dt_b, n_imu = self._imu_for_frame(t)
@@ -1280,8 +1274,9 @@ class VILFusionPipeline:
         with self._vl_lock:
             db.close_loop(i_cur, cand, q_rel, p_rel)
             # drift: corrected keyframe pose against its VIO pose (:552-574)
-            dyaw, R_d, t_d = pg4.drift_transform(graph_before, db.graph, i_cur)
-            R_d, t_d = R_d.cpu().numpy(), t_d.cpu().numpy()
+            drift = torch.cat([x.reshape(-1) for x in pg4.drift_transform(
+                graph_before, db.graph, i_cur)]).cpu().numpy()  # one read
+            dyaw, R_d, t_d = drift[0], drift[1:10].reshape(3, 3), drift[10:13]
             # move the insert-time (VIO-frame) records into the corrected
             # frame (the estimator is about to be re-anchored by the same
             # transform), then pull the optimized poses into the store

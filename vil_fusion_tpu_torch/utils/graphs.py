@@ -16,7 +16,10 @@ already (then the key keeps running `fn`). A capture:
     builds, cuBLAS / cuSOLVER handles, functorch, `host_constant`s); the
     step is pure, so their outputs are dropped and no state changes;
   * one call is captured (`capture_error_mode="thread_local"`), holding
-    `lock` where another thread enqueues on the same device.
+    `lock` where another thread enqueues on the same device (a thread that
+    holds that lock already, as the visual-loop worker holds the pipeline's
+    step lock through its job, passes none). A capture holds its key's
+    lock only: other threads replay their graphs meanwhile.
 
 Every call from the capture on copies its arguments into the static
 buffers (`copy_`, or `fill_` for a number), replays the graph and returns
@@ -49,7 +52,8 @@ pipeline calls it where it reads the frame's results anyway; it never
 waits unless asked to).
 `host_constant` gives a step the tensors it would otherwise copy from host
 data on every call (a blocking copy on a CUDA device, and not allowed while
-capturing): made once per (values, dtype, device).
+capturing): made once per (values, dtype, device); `upload` copies host
+data a step's caller passes in through pinned memory, without waiting.
 """
 from __future__ import annotations
 
@@ -75,6 +79,7 @@ MAX_GRAPHS = 16  # graphs kept a step name
 _steps: dict = {}
 _seen: set = set()  # keys called once
 _graphs_by_name: dict = {}
+_key_locks: dict = {}  # held while a key captures
 _steps_lock = threading.Lock()
 
 
@@ -248,6 +253,20 @@ def host_constant(values, dtype, device) -> torch.Tensor:
     return _constant(_freeze(values), dtype, torch.device(device))
 
 
+def upload(x, device, dtype=None) -> torch.Tensor:
+    """The host array `x` (as `dtype`, converted on the host) on `device`. On
+    the card through pinned memory and without waiting for the stream (a
+    pageable copy would wait for every kernel enqueued before it). The
+    caller keeps no buffer: the copy records an event on the pinned block,
+    and the caching host allocator reuses it only once that event has
+    passed."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    t = t if dtype is None else t.to(dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 # -- flattening of the arguments and outputs -----------------------------------
 
 _NONE = ("none",)
@@ -323,6 +342,18 @@ def _graph_nodes(graph, bodies=()) -> Optional[dict]:
     return out
 
 
+def _pool_bytes(graph, body_pools=()) -> Optional[int]:
+    """Bytes of the segments of `graph`'s private memory pool and of its
+    conditional bodies' pools (torch.cuda.MemPool); None where the
+    allocator's snapshot does not name the pool of a segment."""
+    pools = {tuple(graph.pool()), *(tuple(p.id) for p in body_pools)}
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) in pools)
+
+
 def _check_device(name: str, leaves: list) -> torch.device:
     """The one CUDA device of the tensors in `leaves`, else ValueError."""
     devs = {x.device for x in leaves if isinstance(x, torch.Tensor)}
@@ -335,9 +366,11 @@ def _check_device(name: str, leaves: list) -> torch.device:
 class CapturedStep:
     """fn(*args) captured once as a CUDA graph and replayed (module
     docstring). `stats`: warm-up, capture and instantiation seconds, the
-    graph's nodes by type, the device memory the capture reserved (its
-    private pool's new segments, MiB) and its static argument buffers'
-    (MiB)."""
+    graph's nodes by type, the device memory of its private pool (its
+    segments, MiB; None where this torch does not name a segment's pool)
+    and of its static argument buffers (MiB), the capturing thread's name,
+    and the replays of every graph (other threads' included) made while
+    the capture ran, by name."""
 
     def __init__(self, name: str, fn: Callable, args: tuple, warmup: int = 2,
                  lock=None):
@@ -362,10 +395,8 @@ class CapturedStep:
             main.wait_stream(side)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            # the capture's private pool: what stays reserved after it, with
-            # the cache emptied on both sides (the capture empties it too)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
+            with count_lock:
+                replays0 = dict(replays)
             try:
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
             except TypeError:
@@ -380,20 +411,23 @@ class CapturedStep:
                 self.cond_launches, self.preds = _tls.cond_launches, _tls.preds
                 self.body_pools, bodies = _tls.body_pools, _tls.bodies
             t2 = time.perf_counter()
+            with count_lock:
+                during = {k: v - replays0.get(k, 0) for k, v in replays.items()
+                          if v != replays0.get(k, 0)}
             nodes = _graph_nodes(graph, bodies)
             if hasattr(graph, "instantiate"):
                 graph.instantiate()
             torch.cuda.synchronize()
             t3 = time.perf_counter()
-            torch.cuda.empty_cache()
-            pool = torch.cuda.memory_reserved(self.device) - reserved
+            pool = _pool_bytes(graph, self.body_pools)
         self.graph = graph
         out_leaves: list = []
         self.out_spec = _flatten(out, out_leaves)
         self.out = out_leaves
         self.stats = dict(name=name, warmup_s=t1 - t0, warmup_calls=warmup, capture_s=t2 - t1,
                           instantiate_s=t3 - t2, nodes=nodes,
-                          pool_mib=pool / 2**20,
+                          pool_mib=None if pool is None else pool / 2**20,
+                          thread=threading.current_thread().name, replays_during=during,
                           static_mib=sum(x.numel() * x.element_size()
                                          for x in self.static) / 2**20)
 
@@ -438,14 +472,29 @@ def step(name: str, fn: Callable, args: tuple, static=(), lock=None):
     spec = _flatten(args, leaves)
     _check_device(name, leaves)
     key = (name, static, spec, tuple(_signature(x) for x in leaves))
+    # a capture holds its key's lock only: another thread replays, or
+    # captures another key, meanwhile (a thread that holds `lock` already,
+    # as the visual-loop worker holds the pipeline's step lock, passes none)
     with _steps_lock:
-        cs = _steps.get(key)
-        if cs is None and key in _seen and _graphs_by_name.get(name, 0) < MAX_GRAPHS:
-            cs = CapturedStep(name, fn, args, lock=lock)
-            _steps[key] = cs
-            _graphs_by_name[name] = _graphs_by_name.get(name, 0) + 1
-            captures.append(cs.stats)
-        _seen.add(key)
+        key_lock = _key_locks.setdefault(key, threading.Lock())
+    with key_lock:
+        with _steps_lock:
+            cs = _steps.get(key)
+            capture = (cs is None and key in _seen
+                       and _graphs_by_name.get(name, 0) < MAX_GRAPHS)
+            if capture:
+                _graphs_by_name[name] = _graphs_by_name.get(name, 0) + 1
+            _seen.add(key)
+        if capture:
+            try:
+                cs = CapturedStep(name, fn, args, lock=lock)
+            except BaseException:  # the key stays without a graph, its slot free
+                with _steps_lock:
+                    _graphs_by_name[name] -= 1
+                raise
+            with _steps_lock:
+                _steps[key] = cs
+                captures.append(cs.stats)
     if cs is None:
         with count_lock:
             eager_calls[name] = eager_calls.get(name, 0) + 1
