@@ -38,6 +38,7 @@ from vil_fusion_tpu_torch.models import scancontext as sc
 from vil_fusion_tpu_torch.ops import lie
 from vil_fusion_tpu_torch.utils import graphs
 from vil_fusion_tpu_torch.utils.graphs import host_constant
+from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
 
 
 class _HostCopy:
@@ -223,7 +224,11 @@ class GlobalFusion:
         """Feed one odometry pose (host arrays or tensors; the pipeline
         passes host arrays it already read) + body-frame scan (tensors).
         Returns (i, j) if a loop was accepted this keyframe, else None.
-        Non-keyframes are ignored."""
+        Non-keyframes are ignored; keyframes past `node_capacity` are
+        dropped and counted ("global_fusion.keyframes_dropped"). Spans:
+        "global_fusion.keyframe" (the keyframe program), ".poll" (the loop
+        queries' and ICP verdicts' polls, which dispatch ".icp"), ".relax"
+        (the pose graph's relaxation)."""
         q_np = self._host(q_odom)
         p_np = self._host(p_odom)
         if not self.is_keyframe(q_np, p_np):
@@ -231,18 +236,20 @@ class GlobalFusion:
         cfg = self.cfg
         i = self.n_kf
         if i >= cfg.node_capacity:
+            GLOBAL_TIMERS.count("global_fusion.keyframes_dropped")
             return None  # graph full
 
-        # the four poses in one pinned, non-blocking upload
-        poses = graphs.upload(np.concatenate(
-            [self.last_q if i else q_np, self.last_p if i else p_np, q_np, p_np]),
-            self.device, self.dtype)
-        (self.graph, self.scdb, self.clouds, self.cloud_valid, cand, dist,
-         shift) = _keyframe_program(
-            self.graph, self.scdb, self.clouds, self.cloud_valid,
-            poses[0:4], poses[4:7], poses[7:11], poses[11:14],
-            scan_points.to(self.device, self.dtype), scan_valid.to(self.device),
-            i, i == 0, self.capture_lock)
+        with GLOBAL_TIMERS.timed("global_fusion.keyframe"):
+            # the four poses in one pinned, non-blocking upload
+            poses = graphs.upload(np.concatenate(
+                [self.last_q if i else q_np, self.last_p if i else p_np, q_np, p_np]),
+                self.device, self.dtype)
+            (self.graph, self.scdb, self.clouds, self.cloud_valid, cand, dist,
+             shift) = _keyframe_program(
+                self.graph, self.scdb, self.clouds, self.cloud_valid,
+                poses[0:4], poses[4:7], poses[7:11], poses[11:14],
+                scan_points.to(self.device, self.dtype), scan_valid.to(self.device),
+                i, i == 0, self.capture_lock)
         self.last_q = q_np
         self.last_p = p_np
         self.kf_q_odom.append(q_np)
@@ -253,16 +260,18 @@ class GlobalFusion:
         # start the host copy of this keyframe's loop query now; resolve
         # queries only once their copies have landed
         self._pending_sc.append((i, _HostCopy(cand, dist, shift)))
-        res_icp = self._poll_icp()
-        res_sc = self._poll_sc()
+        with GLOBAL_TIMERS.timed("global_fusion.poll"):
+            res_icp = self._poll_icp()
+            res_sc = self._poll_sc()
         result = res_sc if res_sc is not None else res_icp
 
         self._pending_opt += 1
         # relaxation is a no-op until the first loop edge exists
         if self.loops_found and (
                 result is not None or self._pending_opt >= cfg.optimize_every):
-            self.graph = pg.optimize_bucketed(self.graph, self.n_kf,
-                                              capture_lock=self.capture_lock)
+            with GLOBAL_TIMERS.timed("global_fusion.relax"):
+                self.graph = pg.optimize_bucketed(self.graph, self.n_kf,
+                                                  capture_lock=self.capture_lock)
             self._pending_opt = 0
         return result
 
@@ -318,21 +327,24 @@ class GlobalFusion:
         """ICP of keyframe i against the +-submap_half_span submap around j;
         the fitness is read by _poll_icp once its host copy lands."""
         cfg = self.cfg
-        ks = np.clip(np.arange(j - cfg.submap_half_span,
-                               j + cfg.submap_half_span + 1), 0, self.n_kf - 1)
-        dup = np.zeros(len(ks), bool)
-        dup[1:] = ks[1:] == ks[:-1]  # clamp duplicates (ks is nondecreasing)
-        ks_dev = graphs.upload(ks, self.device, torch.int64)
-        dup_dev = graphs.upload(dup, self.device, torch.bool)
-        q_fit, p_fit, fitness = _submap_icp(
-            self.graph.q, self.graph.p, self.clouds, self.cloud_valid, ks_dev, dup_dev,
-            i, j, yaw0, self.capture_lock)
+        with GLOBAL_TIMERS.timed("global_fusion.icp"):
+            ks = np.clip(np.arange(j - cfg.submap_half_span,
+                                   j + cfg.submap_half_span + 1), 0, self.n_kf - 1)
+            dup = np.zeros(len(ks), bool)
+            dup[1:] = ks[1:] == ks[:-1]  # clamp duplicates (ks is nondecreasing)
+            ks_dev = graphs.upload(ks, self.device, torch.int64)
+            dup_dev = graphs.upload(dup, self.device, torch.bool)
+            q_fit, p_fit, fitness = _submap_icp(
+                self.graph.q, self.graph.p, self.clouds, self.cloud_valid, ks_dev, dup_dev,
+                i, j, yaw0, self.capture_lock)
         self._pending_icp.append((i, j, q_fit, p_fit,
                                   _HostCopy(fitness)))
 
     def _poll_icp(self, block: bool = False) -> Optional[tuple]:
         """Accept every completed ICP verification whose fitness passes
-        (never blocks unless `block`). Returns the last accepted loop."""
+        (never blocks unless `block`). Returns the last accepted loop. Past
+        the loop store's capacity an edge overwrites its last slot
+        (posegraph._slot), counted as "global_fusion.loops_overwritten"."""
         result = None
         while self._pending_icp:
             if not block and not self._pending_icp[0][4].ready():
@@ -340,6 +352,8 @@ class GlobalFusion:
             i, j, q_fit, p_fit, copy = self._pending_icp.pop(0)
             f = float(copy.get()[0])
             if np.isfinite(f) and f <= self.cfg.icp_fitness_max:
+                if len(self.loops_found) >= self.graph.loop_i.shape[0]:
+                    GLOBAL_TIMERS.count("global_fusion.loops_overwritten")
                 self.graph = pg.add_loop(self.graph, j, i, q_fit, p_fit)
                 result = (i, j)
                 self.loops_found.append(result)

@@ -577,6 +577,11 @@ class VILFusionPipeline:
         self.scan_buf: list = []
         self.last_image_t = None
         self.last_processed_t = None
+        # scans and images pushed: a span's request id (utils/tracing.py) is
+        # the sequence number of the scan or image being pushed, and the
+        # push is the request's root span ("push_scan", "push_image")
+        self.scans_pushed = 0
+        self.images_pushed = 0
         self.outputs = PipelineOutputs()
         self.restarts = 0
         # per-restart cause record: which failure_detection predicate(s)
@@ -693,30 +698,36 @@ class VILFusionPipeline:
             self._restart(cause="camera_gap")
         self.last_image_t = float(t)
         self.image_buf.append((float(t), img, mask))
-        return self._try_process()
+        with GLOBAL_TIMERS.request(self.images_pushed), GLOBAL_TIMERS.timed("push_image"):
+            self.images_pushed += 1
+            return self._try_process()
 
     def push_scan(self, t, points, valid):
         """Queue a scan and process what can be paired. With scan_quant > 0
         a float numpy scan is quantized to int16 fixed point (scan_quant
         metres per step) with bit-packed validity before upload, as in the
         reference."""
-        if (self.scan_quant and isinstance(points, np.ndarray)
-                and points.dtype != np.int16):
-            points = np.clip(np.round(points * (1.0 / self.scan_quant)),
-                             -32767, 32767).astype(np.int16)
-            valid = np.packbits(np.asarray(valid, bool))
-        self.scan_buf.append((float(t), points, valid))
-        return self._try_process()
+        with GLOBAL_TIMERS.request(self.scans_pushed), GLOBAL_TIMERS.timed("push_scan"):
+            self.scans_pushed += 1
+            if (self.scan_quant and isinstance(points, np.ndarray)
+                    and points.dtype != np.int16):
+                with GLOBAL_TIMERS.timed("scan_quantize"):
+                    points = np.clip(np.round(points * (1.0 / self.scan_quant)),
+                                     -32767, 32767).astype(np.int16)
+                    valid = np.packbits(np.asarray(valid, bool))
+            self.scan_buf.append((float(t), points, valid))
+            return self._try_process()
 
     def _scan_dev(self, pts, val):
         """Upload a scan: int16 fixed-point + bit-packed validity are
         dequantized on the device; float points pass through."""
-        if getattr(pts, "dtype", None) == np.int16:
-            n = pts.shape[0]
-            return _dequant_scan(graphs.upload(pts, self.device),
-                                 graphs.upload(val, self.device), self.scan_quant, n)
-        return (graphs.upload(np.asarray(pts, np.float32), self.device),
-                graphs.upload(np.asarray(val, bool), self.device))
+        with GLOBAL_TIMERS.timed("scan_upload"):
+            if getattr(pts, "dtype", None) == np.int16:
+                n = pts.shape[0]
+                return _dequant_scan(graphs.upload(pts, self.device),
+                                     graphs.upload(val, self.device), self.scan_quant, n)
+            return (graphs.upload(np.asarray(pts, np.float32), self.device),
+                    graphs.upload(np.asarray(val, bool), self.device))
 
     def _image_dev(self, img):
         img_dev = graphs.upload(img, self.device)
@@ -825,7 +836,8 @@ class VILFusionPipeline:
             self.lidar_frames += 1
             # the frame's one host read: the pose, for outputs and the
             # keyframe gate
-            qp = torch.cat([q, p]).cpu().numpy()
+            with GLOBAL_TIMERS.timed("lidar_odometry.pose_read"):
+                qp = torch.cat([q, p]).cpu().numpy()
         q_np, p_np = qp[:4], qp[4:]
         with GLOBAL_TIMERS.timed("global_fusion"):
             self.fusion.add_frame(q_np, p_np, pts_dev, val_dev, t=t)
@@ -944,7 +956,7 @@ class VILFusionPipeline:
         _complete_frame, sync_depth frames later."""
         img_dev = self._image_dev(img)
         rec: dict = dict(t=t, img=img_dev, gen=self._gen, scan=None, drift_R=None,
-                         drift_t=None)
+                         drift_t=None, request=self.images_pushed - 1)
         if (self.mode == "vil" and scan is not None and mask is None
                 and self.tracker_frames == self.lidar_frames):
             return self._issue_frame_fused(rec, t, img_dev, scan)
@@ -1010,7 +1022,12 @@ class VILFusionPipeline:
 
     def _complete_frame(self, rec):
         """Deferred host-side half of a frame: wait for its copies, then
-        failure handling, global fusion, the visual loop, outputs."""
+        failure handling, global fusion, the visual loop, outputs (its spans
+        carry the frame's request id)."""
+        with GLOBAL_TIMERS.request(rec["request"]):
+            return self._complete_frame_now(rec)
+
+    def _complete_frame_now(self, rec):
         if rec["event"] is not None:
             with GLOBAL_TIMERS.timed("frame_wait"):  # the host's one wait of the frame
                 rec["event"].synchronize()
@@ -1057,7 +1074,7 @@ class VILFusionPipeline:
                          or np.linalg.norm(p_est - self._last_kf_p) >= gap)):
                 self._vl_idle.clear()
                 self._vl_jobs.put(dict(
-                    gen=self._gen, img=rec["img"], p_est=p_est, q_est=q_est,
+                    gen=self._gen, request=rec["request"], img=rec["img"], p_est=p_est, q_est=q_est,
                     window=rec["window"], feats=rec["feats"],
                     pre_drift=(rec["drift_R"], rec["drift_t"]), fresh=(host[7], host[8]),
                     scan=None if rec["scan"] is None else (rec["scan"][2], rec["scan"][3])))
@@ -1139,7 +1156,7 @@ class VILFusionPipeline:
             while True:
                 job = self._vl_jobs.get()
                 try:
-                    with GLOBAL_TIMERS.timed("visual_loop"):
+                    with GLOBAL_TIMERS.request(job["request"]), GLOBAL_TIMERS.timed("visual_loop"):
                         drift = self._visual_loop_step(
                             job["img"], job["p_est"], job["q_est"], window=job["window"],
                             feats=job["feats"], pre_drift=job["pre_drift"],

@@ -75,7 +75,9 @@ def main(argv=None) -> dict:
 
     report = {"frames": len(pipe.outputs.ts), "restarts": pipe.restarts,
               "restart_log": pipe.restart_log, "device": str(pipe.device),
-              "replay": stats, "timers": GLOBAL_TIMERS.summary()}
+              "replay": stats, "timers": GLOBAL_TIMERS.summary(),
+              # keyframes and loop edges global fusion lost to its capacities
+              "counters": dict(GLOBAL_TIMERS.counters)}
     if pipe.visual_loop is not None:
         report["n_visual_loops"] = int(pipe.visual_loop.graph.n_loops)
         report["visual_loop_stats"] = pipe.visual_loop.stats_summary()
@@ -95,6 +97,7 @@ def main(argv=None) -> dict:
             m = ini[:n]
             report["ate_rmse_vio"] = tum.ate_rmse(est_p[:n][m], p_gt[:n][m])
         if pipe.fusion is not None and pipe.fusion.n_kf:
+            report["n_keyframes"] = pipe.fusion.n_kf
             report["n_loop_closures"] = len(pipe.fusion.loops_found)
     except Exception as e:  # ground truth optional
         report["ate_note"] = f"no ground truth evaluated: {e}"

@@ -170,7 +170,10 @@ def main(argv=None) -> dict:
         "restarts": pipe.restarts,
         "restart_log": pipe.restart_log,
         "vl_errors": pipe.vl_errors,
+        "n_keyframes": pipe.fusion.n_kf if pipe.fusion else 0,
         "n_sc_loops": len(pipe.fusion.loops_found) if pipe.fusion else 0,
+        # keyframes and loop edges global fusion lost to its capacities
+        "counters": dict(GLOBAL_TIMERS.counters),
         "n_visual_loops": int(pipe.visual_loop.graph.n_loops)
         if pipe.visual_loop is not None else 0,
         "visual_loop_stats": pipe.visual_loop.stats_summary()

@@ -22,8 +22,9 @@ already (then the key keeps running `fn`). A capture:
     lock only: other threads replay their graphs meanwhile.
 
 Every call from the capture on copies its arguments into the static
-buffers (`copy_`, or `fill_` for a number), replays the graph and returns
-clones of the outputs. Copying on every call means that host code may
+buffers (`copy_`, or `fill_` for a number), replays the graph (a span
+"graph.<name>" of utils/tracing.py: with device timing, its device interval
+is the replay's) and returns clones of the outputs. Copying on every call means that host code may
 rebind the state between calls (a restart, a relocalization's gauge
 transform, a checkpoint's restore) without telling anyone; cloning means
 that no output aliases a buffer the next replay overwrites, so snapshots
@@ -66,6 +67,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
 
 count_lock = threading.Lock()  # kernel wrappers update their launch counts under it
 _tls = threading.local()
@@ -377,6 +380,7 @@ class CapturedStep:
         leaves: list = []
         self.spec = _flatten(args, leaves)
         self.name = name
+        self.span = "graph." + name
         self.device = _check_device(name, leaves)
         self.static = [x.clone() if isinstance(x, torch.Tensor)
                        else torch.full((), x, dtype=_NUMBER_DTYPES[type(x)], device=self.device)
@@ -443,7 +447,8 @@ class CapturedStep:
                     s.copy_(x)
                 else:
                     s.fill_(x)
-            self.graph.replay()
+            with GLOBAL_TIMERS.timed(self.span):
+                self.graph.replay()
             for count, a in self.launches:
                 count(*a)
             settlement = None
