@@ -510,6 +510,156 @@ def test_cuda_slice_matches_cpu(cuda_device):
     assert all(x.is_cuda for x in list(pipes[1].lidar_state) + list(pipes[1].fusion.graph))
 
 
+LAP_RADIUS, LAP_SPEED = 12.0, 6.0  # m, m/s: 0.6 m a scan, 126 scans a lap
+LAP_SCANS = 150  # the lap and 24 scans past its start: 12 loop queries on the revisit
+
+
+def _lap_pipelines(device):
+    """The LiDAR-only pipeline of test_cuda_slice_matches_cpu on a 12-m
+    circuit: a keyframe every 1 m, so every second scan (dp 1.2 m against
+    0.6 m on the scan between: far from the 1-m gate either way; 5.7 deg of
+    yaw, under the 10-deg gate). The ScanContext database's last 30
+    keyframes are excluded, so keyframe 63, back at the start, is the first
+    that can match. The 16-ring scans' clouds are sparse: true revisits fit at
+    0.2-1.2 (mean squared metres), so the fitness gate is 2.5."""
+    from vil_fusion_tpu_torch.models import global_fusion as gf
+    from vil_fusion_tpu_torch.runtime.config import RigConfig
+    from vil_fusion_tpu_torch.runtime.pipeline import VILFusionPipeline
+
+    rig = RigConfig(name="synthetic-16", camera={}, image_height=240, image_width=320,
+                    q_ic=np.array([1.0, 0, 0, 0]), t_ic=np.zeros(3), n_scan=16,
+                    lidar_fov_up=15.0, lidar_fov_down=-25.0, lidar_min_range=1.0,
+                    lidar_max_range=80.0)
+    cfg = gf.GlobalFusionConfig(keyframe_dist=1.0, icp_fitness_max=2.5, node_capacity=128,
+                                loop_capacity=32, cloud_capacity=512, submap_half_span=3)
+    return VILFusionPipeline(
+        rig, mode="lidar", device=device, gf_cfg=cfg, scan_quant=0.0025,
+        odom_overrides=dict(edge_map_cap=4096, surf_map_cap=8192, edge_cap=512, surf_cap=2048))
+
+
+def _lap_scans():
+    from vil_fusion_tpu_torch.runtime import sim
+
+    scene = sim.urban_block_scene(LAP_RADIUS)
+    traj = sim.LoopTrajectory(radius=LAP_RADIUS, period=2 * np.pi * LAP_RADIUS / LAP_SPEED,
+                              speed_mod=0.0)
+    for i in range(LAP_SCANS):
+        t = 1.0 + 0.1 * i
+        pts, val = sim.simulate_lidar_scan(scene, traj.rotation(t),
+                                           traj.position(t) + np.array([0, 0, 1.5]),
+                                           n_scan=16, width=900, fov_up_deg=15.0,
+                                           fov_down_deg=-25.0, range_noise=0.01, seed=i)
+        yield t, pts, val
+
+
+@pytest.fixture(scope="module")
+def lap_runs(tmp_path_factory):
+    """The lap through the pipeline on the card (scan after scan, nothing
+    waiting between them: its fusion stream runs beside the odometry), with
+    a checkpoint of its global fusion saved right after the first keyframe
+    that dispatched an ICP verification and the state the fusion's stream
+    left then; the lap on the card with global fusion on the caller's
+    stream (no stream of its own: every keyframe's work in front of the next
+    scan's odometry); the lap on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kNN kernels have no CPU mode")
+    from vil_fusion_tpu_torch.runtime import checkpoint
+    from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
+
+    scans = list(_lap_scans())
+    dev = torch.device("cuda", 0)
+    gpu, inline = _lap_pipelines(dev), _lap_pipelines(dev)
+    inline.fusion.fence()
+    inline.fusion.stream = None
+    fusion, dispatched = gpu.fusion, []
+    dispatch = fusion._dispatch_icp
+
+    def record_dispatch(i, j, yaw0):
+        dispatched.append((i, j))
+        return dispatch(i, j, yaw0)
+
+    fusion._dispatch_icp = record_dispatch
+    path = str(tmp_path_factory.mktemp("lap") / "fusion.npz")
+    saved = None
+    busy0 = GLOBAL_TIMERS.counters["global_fusion.stream_busy"]
+    for k, (t, pts, val) in enumerate(scans):
+        gpu.push_scan(t, pts, val)
+        if k == 8:  # the ICP and relaxation graphs captured before the revisit
+            fusion.prewarm()
+            fusion.prewarm()
+            dispatched.clear()
+        if saved is None and dispatched:
+            checkpoint.save_global_fusion(fusion, path)
+            fusion.fence()
+            saved = dict(graph=[x.clone() for x in fusion.graph],
+                         scdb=[x.clone() for x in fusion.scdb], clouds=fusion.clouds.clone(),
+                         cloud_valid=fusion.cloud_valid.clone(), n_kf=fusion.n_kf,
+                         loops=list(fusion.loops_found))
+    busy = GLOBAL_TIMERS.counters["global_fusion.stream_busy"] - busy0
+    gpu.finalize()
+    for t, pts, val in scans:
+        inline.push_scan(t, pts, val)
+    inline.finalize()
+    cpu = _lap_pipelines("cpu")
+    for t, pts, val in scans:
+        cpu.push_scan(t, pts, val)
+    cpu.finalize()
+    return dict(gpu=gpu, inline=inline, cpu=cpu, busy=busy, path=path, saved=saved)
+
+
+def test_cuda_lap_loops_match_cpu(lap_runs):
+    """The lap's global fusion on its own stream against the same on the
+    caller's stream and against the CPU's, which resolves every loop query
+    at its keyframe: the same keyframes and the same accepted loops after
+    finalize(); the same odometry bit for bit as on the caller's stream
+    (the fusion stream's graphs, replayed beside the odometry's, write
+    nothing of it); keyframe poses within 0.05 m of both (a relaxation runs
+    at the keyframe whose poll finds a loop's copy landed, which the
+    device's timing decides: 0.013 m apart on the card), odometry within
+    0.05 m of the CPU's (float32 sums that round apart on the two devices,
+    amplified along 150 registrations: 0.035 m by the lap's end with or
+    without the fusion stream; test_cuda_slice_matches_cpu holds 8 scans
+    to 0.02 m). The stream was found busy at some keyframe, and never more
+    than BACKLOG keyframes were in flight."""
+    from vil_fusion_tpu_torch.models import global_fusion as gf
+
+    gpu, inline, cpu = lap_runs["gpu"], lap_runs["inline"], lap_runs["cpu"]
+    assert gpu.fusion.n_kf == inline.fusion.n_kf == cpu.fusion.n_kf >= 70
+    loops = set(cpu.fusion.loops_found)
+    assert set(gpu.fusion.loops_found) == set(inline.fusion.loops_found) == loops
+    assert len(loops) >= 5
+    o_gpu, o_inline, o_cpu = (np.stack(p.outputs.lidar_p) for p in (gpu, inline, cpu))
+    p_gpu, p_inline, p_cpu = (p.fusion.poses()[1] for p in (gpu, inline, cpu))
+    assert np.array_equal(o_gpu, o_inline)
+    assert np.abs(p_gpu - p_inline).max() < 0.05
+    assert np.isfinite(o_gpu).all() and np.abs(o_gpu - o_cpu).max() < 0.05
+    assert np.isfinite(p_gpu).all() and np.abs(p_gpu - p_cpu).max() < 0.05
+    assert lap_runs["busy"] > 0
+    assert 1 <= gpu.fusion.max_in_flight <= gf.GlobalFusion.BACKLOG
+    assert not gpu.fusion._pending_sc and not gpu.fusion._pending_icp
+
+
+def test_cuda_checkpoint_after_icp_dispatch(lap_runs):
+    """A checkpoint saved right after a keyframe that dispatched an ICP
+    verification (its keyframe program, ICP and any relaxation still on the
+    fusion stream) holds the state that stream left: loaded into a fresh
+    GlobalFusion on the card, graph, database and clouds equal it bit for
+    bit."""
+    from vil_fusion_tpu_torch.models import global_fusion as gf
+    from vil_fusion_tpu_torch.runtime import checkpoint
+
+    saved = lap_runs["saved"]
+    assert saved is not None
+    f = gf.GlobalFusion(lap_runs["gpu"].fusion.cfg, device=torch.device("cuda", 0))
+    checkpoint.load_global_fusion(f, lap_runs["path"])
+    assert f.n_kf == saved["n_kf"] and f.loops_found == saved["loops"]
+    f.fence()
+    for a, b in ((f.graph, saved["graph"]), (f.scdb, saved["scdb"])):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(f.clouds, saved["clouds"])
+    assert torch.equal(f.cloud_valid, saved["cloud_valid"])
+
+
 def test_cuda_front_end_matches_cpu(cuda_device):
     """vil_front_end on the card against the same function on the CPU over 3
     small frames (16-ring scans, 160 x 120 images; RANSAC off, because with
@@ -1342,7 +1492,8 @@ def test_cuda_global_fusion_graphs_without_sync(cuda_device):
     """GlobalFusion on the card: after the graphs of its keyframe program,
     submap ICP and relaxation are captured, keyframes, an ICP dispatch, a
     loop edge and a relaxation run under torch.cuda.set_sync_debug_mode(
-    "error") without raising; the graph, database and clouds equal those
+    "error") without raising (the test's direct calls on the fusion's own
+    stream, as global fusion makes them); the graph, database and clouds equal those
     of the same keyframes through the eager bodies (graphs.inline())."""
     from vil_fusion_tpu_torch.models import global_fusion as gf
     from vil_fusion_tpu_torch.models import posegraph as pg
@@ -1366,15 +1517,19 @@ def test_cuda_global_fusion_graphs_without_sync(cuda_device):
 
     def run(eager):
         f, icps = gf.GlobalFusion(cfg, device=cuda_device), []
+        f.stream.wait_stream(torch.cuda.current_stream())  # the scans' uploads
         for i, (q, p, pts, val) in enumerate(scans):
             strict = not eager and i >= 4  # the graphs exist from the fourth keyframe on
-            with graphs.inline() if eager else _sync_mode("error" if strict else None):
+            # the direct calls on the fusion's stream, where global fusion runs them
+            with (graphs.inline() if eager else _sync_mode("error" if strict else None),
+                  torch.cuda.stream(f.stream)):
                 f.add_frame(q, p, pts, val, t=float(i))
                 if i >= 2:  # the ICP and the relaxation: the first call runs the body,
                     f._dispatch_icp(i, 0, 0.1)  # the second captures
                     icps.append(f._pending_icp.pop())  # never accepted: no loop edge
                     f.graph = pg.optimize_bucketed(f.graph, f.n_kf)
-        with _sync_mode("error") if not eager else graphs.inline():
+        with (_sync_mode("error") if not eager else graphs.inline(),
+              torch.cuda.stream(f.stream)):
             f.graph = pg.add_loop(f.graph, 0, 8, q_id, torch.zeros(3, device=cuda_device))
         f.flush()
         torch.cuda.synchronize()

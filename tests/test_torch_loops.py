@@ -460,3 +460,79 @@ def test_scancontext_with_keyframe_is_the_insert(revisit_scans):
             assert all(torch.equal(x, y) for x, y in zip(db, before))
             db = tsc.add_keyframe(db, desc)
             assert all(torch.equal(x, y) for x, y in zip(new, db))
+
+
+def test_cpu_fusion_has_no_stream(fusion_pair):
+    """On the CPU global fusion has no stream and records no event: prewarm
+    (an ICP verification and a relaxation, results dropped) leaves graph,
+    database and clouds as they were, bit for bit, and poses() reads the
+    graph."""
+    _, tf = fusion_pair
+    assert tf.stream is None and not tf._done and tf.max_in_flight == 1
+    before = state_io.global_fusion_to_numpy(tf)
+    tf.prewarm()
+    after = state_io.global_fusion_to_numpy(tf)
+    for part in ("graph", "scdb"):
+        for k in before[part]:
+            np.testing.assert_array_equal(after[part][k], before[part][k], err_msg=k)
+    np.testing.assert_array_equal(after["clouds"], before["clouds"])
+    assert tf.stream is None and not tf._done and not tf._pending_icp
+    q, p = tf.poses()
+    np.testing.assert_array_equal(p, before["graph"]["p"][:tf.n_kf])
+    np.testing.assert_array_equal(q, before["graph"]["q"][:tf.n_kf])
+
+
+class _StandInEvent:
+    """A CUDA event's stand-in: `passed` until synchronize() makes it so."""
+
+    def __init__(self, passed: bool):
+        self.passed, self.waits = passed, 0
+
+    def query(self):
+        return self.passed
+
+    def synchronize(self):
+        self.waits += 1
+        self.passed = True
+
+
+@pytest.mark.parametrize("passed", [False, True], ids=["outstanding", "passed"])
+def test_backlog_waits_for_the_keyframe_backlog_back(monkeypatch, passed):
+    """The fusion stream's backlog with stand-in events for the keyframes'
+    done events. Every keyframe's work outstanding: keyframe i waits inside
+    the span "global_fusion.backlog_wait" exactly when i >= BACKLOG, and for
+    keyframe i - BACKLOG's event alone; "global_fusion.stream_busy" counts
+    every keyframe after the first; never more than BACKLOG keyframes in
+    flight. Every keyframe's work finished: no wait, no count, one in
+    flight."""
+    from vil_fusion_tpu_torch.utils.tracing import GLOBAL_TIMERS
+
+    scene = sim.RaycastScene()
+    kw = dict(node_capacity=32, loop_capacity=4, cloud_capacity=256, submap_half_span=2)
+    f = tgf.GlobalFusion(tgf.GlobalFusionConfig(**kw), device="cpu")
+    events = []
+
+    def mark_done():
+        events.append(_StandInEvent(passed))
+        f._done.append(events[-1])
+
+    monkeypatch.setattr(f, "_mark_done", mark_done)
+    backlog = tgf.GlobalFusion.BACKLOG
+    for i in range(backlog + 3):
+        waits0 = GLOBAL_TIMERS.summary().get("global_fusion.backlog_wait", {}).get("n", 0)
+        busy0 = GLOBAL_TIMERS.counters["global_fusion.stream_busy"]
+        R, p = _yaw_R(0.05 * i), np.array([5.0 + 3.0 * i, 0.0, 1.5])
+        pts, val = _scan_at(scene, R, p)
+        f.add_frame(sim.R_to_q(R).astype(np.float32), p.astype(np.float32), _t(pts), _t(val),
+                    t=float(i))
+        waited = GLOBAL_TIMERS.summary().get("global_fusion.backlog_wait", {}).get("n", 0) - waits0
+        busy = GLOBAL_TIMERS.counters["global_fusion.stream_busy"] - busy0
+        assert f.n_kf == i + 1 and len(events) == i + 1
+        if passed:
+            assert waited == 0 and busy == 0
+        else:
+            assert waited == int(i >= backlog) and busy == int(i >= 1)
+            assert [k for k, e in enumerate(events) if e.waits] == list(range(i - backlog + 1))
+            assert len(f._done) == min(i + 1, backlog)
+    assert all(e.waits <= 1 for e in events)
+    assert f.max_in_flight == (1 if passed else backlog)

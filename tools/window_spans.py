@@ -17,9 +17,11 @@ breakdown (idle gaps charged to
 the innermost span open on the host; host ms by span of the slowest 5% of
 scans beside the mean scan's), the share of the harness's push_scan time
 that the stages inside the program's "push_scan" span cover, global
-fusion's loss counters,
-and the shared-clock check: the spans' device intervals put on the
-profiler's clock, and the share of the profiled device time inside them.
+fusion's counters (since the process started, and from the window's first
+push to the profiled sub-window: the loss counters, the fusion stream found
+busy at a keyframe), and the shared-clock check: the spans' device
+intervals put on the profiler's clock, and the share of the profiled
+device time inside them.
 With `--record 0` nothing is recorded (the same run, to time recording's
 cost). Prints one JSON line last and writes it to OUT/<workload>_<seed>_<record>.json.
 Needs one NVIDIA card.
@@ -39,7 +41,7 @@ sys.path.insert(0, ROOT)
 SPAN_METRICS = ("device.window_idle_pct.lidar", "lidar_odometry.device_ms",
                 "lidar_odometry.pose_wait_ms", "pipeline.scan_quantize_ms",
                 "global_fusion.device_ms.lidar", "lidar_odometry.host_ms",
-                "global_fusion.host_ms.lidar")
+                "global_fusion.host_ms.lidar", "global_fusion.backlog_wait_ms")
 
 
 def install_hooks(state: dict, device) -> None:
@@ -59,12 +61,15 @@ def install_hooks(state: dict, device) -> None:
     push, traced, reduce = harness.Feeder.push, trace_mod.traced, trace_mod.reduce
 
     def push_hooked(self, hook=None):
+        if hook is not None and "counters0" not in state:
+            state["counters0"] = dict(GLOBAL_TIMERS.counters)
         if hook is not None and device is not None and "recording" not in state:
             state["recording"] = True
             GLOBAL_TIMERS.record(device)
         return push(self, hook)
 
     def traced_hooked(feeder, frames, dev):
+        state["counters1"] = dict(GLOBAL_TIMERS.counters)
         t0 = time.perf_counter()
         out = traced(feeder, frames, dev)
         state["traced"] = (t0, time.perf_counter())
@@ -91,8 +96,10 @@ def summarize(state: dict, process_start: float) -> dict:
     rec = state["rec"]
     lo = process_start + rec.setup_s
     hi = lo + rec.window_s
+    c0, c1 = state.get("counters0", {}), state.get("counters1", {})
     out = dict(scans_per_s=rec.delivered / rec.window_s, delivered=rec.delivered,
-               counters=dict(GLOBAL_TIMERS.counters))
+               counters=dict(GLOBAL_TIMERS.counters),
+               counters_in_window={k: v - c0.get(k, 0) for k, v in c1.items()})
     log = state.get("log")
     if log is not None:
         rec.spans = span_mod.in_window(log.spans, lo, hi)

@@ -15,6 +15,20 @@ Host values go up the same way (`graphs.upload`: pinned memory,
 non_blocking), so no call waits for the frames in flight, but `flush`,
 `prewarm`, `poses` and the blocking polls.
 
+On a CUDA device global fusion enqueues all of its device work on a stream
+of its own (SC-A-LOAM's loop detection, ICP and pose-graph threads run
+apart from its odometry too): a keyframe's stream waits for what the
+caller's stream has enqueued so far (the scan's dequantization and
+odometry), and the caller's next odometry step no longer queues behind the
+keyframe's ICP verification or relaxation. Readers of the device state
+(`poses`, `flush`, a checkpoint's save: `fence`) make the caller's stream
+wait for the fusion stream; state put in from outside (a checkpoint's load:
+`adopt_state`) is held for the fusion stream. The stream's backlog is
+bounded: keyframe i is enqueued only once keyframe i - BACKLOG's work has
+finished (span "global_fusion.backlog_wait"), so every loop query and ICP
+verdict is still resolved in order, at a bounded lag. On the CPU there is
+no stream and every path runs as it did.
+
 On a CUDA device the reference's jitted programs replay CUDA graphs
 (utils/graphs.step): the keyframe program's pure part ("keyframe_program":
 edge glue, node values, descriptor, the loop query on the database with the
@@ -25,6 +39,8 @@ database row, cloud) then run in place on the device index; the submap ICP
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -178,17 +194,28 @@ class GlobalFusionConfig(NamedTuple):
 class GlobalFusion:
     """Host orchestration of keyframes, loop queries and graph relaxation."""
 
+    # keyframes whose device work may still be in flight on the fusion stream
+    # when the next one is enqueued: room for one ICP verification and
+    # relaxation burst (~35 ms on an H100) while a loop closure lags the
+    # odometry by at most ~10 scans at KITTI's keyframe spacing
+    BACKLOG = 4
+
     def __init__(self, cfg: GlobalFusionConfig = GlobalFusionConfig(),
                  dtype=torch.float32, device="cuda"):
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)
-        self.graph = pg.init_graph(cfg.node_capacity, cfg.loop_capacity, dtype, self.device)
-        self.scdb = sc.init_db(cfg.node_capacity, dtype, self.device)
-        self.clouds = torch.zeros((cfg.node_capacity, cfg.cloud_capacity, 3), dtype=dtype,
-                                  device=self.device)
-        self.cloud_valid = torch.zeros((cfg.node_capacity, cfg.cloud_capacity),
-                                       dtype=torch.bool, device=self.device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._done = collections.deque()  # an event a keyframe in flight, oldest first
+        self.max_in_flight = 0  # the most keyframes ever in flight on the stream
+        with self._on_stream():
+            self.graph = pg.init_graph(cfg.node_capacity, cfg.loop_capacity, dtype,
+                                       self.device)
+            self.scdb = sc.init_db(cfg.node_capacity, dtype, self.device)
+            self.clouds = torch.zeros((cfg.node_capacity, cfg.cloud_capacity, 3), dtype=dtype,
+                                      device=self.device)
+            self.cloud_valid = torch.zeros((cfg.node_capacity, cfg.cloud_capacity),
+                                           dtype=torch.bool, device=self.device)
         self.kf_q_odom = []  # odometry pose at each keyframe (host list)
         self.kf_p_odom = []
         self.kf_ts = []  # keyframe timestamps (for TUM export / ATE)
@@ -202,6 +229,56 @@ class GlobalFusion:
         # held while a graph of global fusion is captured (a pipeline whose
         # visual-loop worker enqueues on the same device sets its step lock)
         self.capture_lock = None
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Enqueue the block's device work on the fusion stream, after what
+        the caller's stream has enqueued so far (on the CPU: as it is)."""
+        if self.stream is None:
+            yield
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            yield
+
+    def fence(self) -> None:
+        """Make the caller's stream wait for the device work global fusion
+        has enqueued, before it reads the graph, database or clouds (no host
+        wait; nothing on the CPU)."""
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def adopt_state(self) -> None:
+        """Hold the memory of device state another stream made (a
+        checkpoint's load) for the fusion stream: the allocator gives it to
+        no other stream's tensors until the fusion stream's work on it has
+        finished. The fusion stream's next work waits for the caller's."""
+        if self.stream is not None:
+            for t in (*self.graph, *self.scdb, self.clouds, self.cloud_valid):
+                t.record_stream(self.stream)
+
+    def _admit(self) -> None:
+        """Before a keyframe is enqueued: count "global_fusion.stream_busy"
+        if the previous keyframe's work has not finished, and wait (span
+        "global_fusion.backlog_wait") for the one BACKLOG keyframes back if
+        it has not. The stream runs in order, so the finished events are at
+        the deque's front."""
+        done = self._done
+        while done and done[0].query():
+            done.popleft()
+        if done:
+            GLOBAL_TIMERS.count("global_fusion.stream_busy")
+        if len(done) >= self.BACKLOG:
+            with GLOBAL_TIMERS.timed("global_fusion.backlog_wait"):
+                done.popleft().synchronize()
+        self.max_in_flight = max(self.max_in_flight, len(done) + 1)
+
+    def _mark_done(self) -> None:
+        """Record the end of this keyframe's work on the fusion stream."""
+        if self.stream is not None:
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+            self._done.append(ev)
 
     @staticmethod
     def _host(x):
@@ -228,7 +305,9 @@ class GlobalFusion:
         dropped and counted ("global_fusion.keyframes_dropped"). Spans:
         "global_fusion.keyframe" (the keyframe program), ".poll" (the loop
         queries' and ICP verdicts' polls, which dispatch ".icp"), ".relax"
-        (the pose graph's relaxation)."""
+        (the pose graph's relaxation), ".backlog_wait" (on the card: the wait
+        for the keyframe BACKLOG back, see `_admit`; counter
+        "global_fusion.stream_busy")."""
         q_np = self._host(q_odom)
         p_np = self._host(p_odom)
         if not self.is_keyframe(q_np, p_np):
@@ -239,6 +318,20 @@ class GlobalFusion:
             GLOBAL_TIMERS.count("global_fusion.keyframes_dropped")
             return None  # graph full
 
+        pts = scan_points.to(self.device, self.dtype)
+        val = scan_valid.to(self.device)
+        if self.stream is not None:  # made on the caller's stream, read on the fusion stream
+            pts.record_stream(self.stream)
+            val.record_stream(self.stream)
+        self._admit()
+        with self._on_stream():
+            result = self._keyframe(q_np, p_np, pts, val, i, t)
+            self._mark_done()
+        return result
+
+    def _keyframe(self, q_np, p_np, pts, val, i: int, t) -> Optional[tuple]:
+        """add_frame's device work for keyframe i, on the current stream."""
+        cfg = self.cfg
         with GLOBAL_TIMERS.timed("global_fusion.keyframe"):
             # the four poses in one pinned, non-blocking upload
             poses = graphs.upload(np.concatenate(
@@ -247,8 +340,7 @@ class GlobalFusion:
             (self.graph, self.scdb, self.clouds, self.cloud_valid, cand, dist,
              shift) = _keyframe_program(
                 self.graph, self.scdb, self.clouds, self.cloud_valid,
-                poses[0:4], poses[4:7], poses[7:11], poses[11:14],
-                scan_points.to(self.device, self.dtype), scan_valid.to(self.device),
+                poses[0:4], poses[4:7], poses[7:11], poses[11:14], pts, val,
                 i, i == 0, self.capture_lock)
         self.last_q = q_np
         self.last_p = p_np
@@ -282,10 +374,11 @@ class GlobalFusion:
         kernels. Requires at least one keyframe."""
         if self.n_kf < 1:
             return
-        self._dispatch_icp(self.n_kf - 1, max(self.n_kf - 2, 0), 0.0)
-        self._pending_icp.pop()[4].get()
-        g = pg.optimize_bucketed(self.graph, self.n_kf, capture_lock=self.capture_lock)
-        _HostCopy(g.p[:1]).get()
+        with self._on_stream():
+            self._dispatch_icp(self.n_kf - 1, max(self.n_kf - 2, 0), 0.0)
+            self._pending_icp.pop()[4].get()
+            g = pg.optimize_bucketed(self.graph, self.n_kf, capture_lock=self.capture_lock)
+            _HostCopy(g.p[:1]).get()
 
     def _poll_sc(self, block: bool = False) -> Optional[tuple]:
         """Resolve every queued loop query whose host copy has landed
@@ -312,14 +405,17 @@ class GlobalFusion:
 
     def flush(self) -> Optional[tuple]:
         """Resolve all in-flight loop queries + ICP verifications (end of a
-        sequence / shutdown)."""
-        res_sc = self._poll_sc(block=True)
-        res_icp = self._poll_icp(block=True)
-        result = res_icp if res_icp is not None else res_sc
-        if result is not None:
-            self.graph = pg.optimize_bucketed(self.graph, self.n_kf,
-                                              capture_lock=self.capture_lock)
-            self._pending_opt = 0
+        sequence / shutdown). The caller's stream then waits for the fusion
+        stream."""
+        with self._on_stream():
+            res_sc = self._poll_sc(block=True)
+            res_icp = self._poll_icp(block=True)
+            result = res_icp if res_icp is not None else res_sc
+            if result is not None:
+                self.graph = pg.optimize_bucketed(self.graph, self.n_kf,
+                                                  capture_lock=self.capture_lock)
+                self._pending_opt = 0
+        self.fence()
         return result
 
     # ------------------------------------------------------------------
@@ -363,5 +459,6 @@ class GlobalFusion:
     def poses(self):
         """(q (n, 4), p (n, 3)) numpy arrays of the optimized keyframe
         trajectory."""
+        self.fence()
         n = self.n_kf
         return self.graph.q[:n].cpu().numpy(), self.graph.p[:n].cpu().numpy()

@@ -225,7 +225,8 @@ def _scratch(dev: torch.device, nbytes: int) -> torch.Tensor:
     too small (not while capturing: `_grow`): K3's tile boxes and lists and
     the Morton keys' partial minima. The kernels that use it run on the
     caller's current stream in the order they were enqueued, so one buffer
-    serves them all."""
+    serves them all (global fusion's own stream calls K2 alone, which takes
+    none)."""
     buf = _scratch_bufs.get(dev)
     if buf is None or buf.numel() < nbytes:
         buf = _grow(_scratch_bufs, dev, "scratch", lambda: torch.empty(

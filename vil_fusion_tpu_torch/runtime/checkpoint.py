@@ -81,6 +81,7 @@ def load_estimator(est, path: str):
 
 
 def save_global_fusion(fusion, path: str):
+    fusion.fence()  # the keyframes, loop edges and relaxations in flight land first
     save_pytree(path, dict(
         graph=fusion.graph, scdb=fusion.scdb, clouds=fusion.clouds,
         cloud_valid=fusion.cloud_valid,
@@ -107,4 +108,5 @@ def load_global_fusion(fusion, path: str):
         fusion.last_q = flat["last_q"]
         fusion.last_p = flat["last_p"]
     fusion.n_kf = int(flat["n_kf"])
+    fusion.adopt_state()
     return fusion

@@ -407,6 +407,13 @@ class CapturedStep:
                 graph = torch.cuda.CUDAGraph()
             _tls.capturing, _tls.cond_launches, _tls.preds = [], [], []
             _tls.bodies, _tls.body_pools = [], []
+            # cuBLAS takes its workspace by (handle, stream): every graph
+            # captured on the one capture stream would share the workspace
+            # of the first, and two of them replayed at once on two streams
+            # (global fusion's beside the odometry's) would write it both.
+            # Dropped here, it is allocated again inside this capture, from
+            # this graph's private pool.
+            torch._C._cuda_clearCublasWorkspaces()
             try:
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                     out = fn(*static_args)

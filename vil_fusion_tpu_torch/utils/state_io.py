@@ -98,6 +98,8 @@ def global_fusion_to_numpy(fusion) -> dict:
     """Buffers + host bookkeeping of a GlobalFusion (either package's) as
     numpy arrays and plain Python values. In-flight loop queries are not
     carried: flush() the source first."""
+    if isinstance(fusion, gf.GlobalFusion):
+        fusion.fence()
     return dict(
         graph=to_numpy(fusion.graph), scdb=to_numpy(fusion.scdb),
         clouds=_np(fusion.clouds), cloud_valid=_np(fusion.cloud_valid),
@@ -124,4 +126,5 @@ def global_fusion_load(fusion: gf.GlobalFusion, arrays: dict) -> gf.GlobalFusion
         setattr(fusion, k, _host_copy(arrays[k]))
     fusion._pending_sc = []
     fusion._pending_icp = []
+    fusion.adopt_state()
     return fusion
